@@ -1,0 +1,122 @@
+"""Build and load the hand-written CUDA kernels (``csrc/``).
+
+The sources compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
+library with a plain C interface, loaded with ``ctypes``.  The build runs at
+first use, into ``halo2_tpu_torch/_build/<hash>/``, where the hash covers the
+sources and the flags, so an edited source rebuilds and an unchanged one is
+reused.  Nothing here runs at import time: the CPU tests import every module
+of the package on hosts without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+_SOURCES = ("mont_mul.cu", "ec.cu")
+_HEADERS = ("field.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lib = None
+build_log = ""  # nvcc's output of the build this process ran ("" if it reused one)
+build_seconds = 0.0
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "h2_mont_mul": [_P, _P, _P, ctypes.c_int64, _P, ctypes.c_uint32, _P],
+    "h2_ec_add": [_P] * 9 + [ctypes.c_int64, _P, ctypes.c_uint32, ctypes.c_uint32, _P],
+    "h2_ec_double": [_P] * 6 + [ctypes.c_int64, _P, ctypes.c_uint32, ctypes.c_uint32, _P],
+}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): cannot build the kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _SOURCES + _HEADERS:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib, build_log, build_seconds
+    if _lib is not None:
+        return _lib
+    out_dir = os.path.join(_BUILD, _source_hash())
+    path = os.path.join(out_dir, "libhalo2cuda.so")
+    if not os.path.exists(path):
+        os.makedirs(out_dir, exist_ok=True)
+        # build under a unique name, then rename: a concurrent process never
+        # loads a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [os.path.join(_CSRC, s) for s in _SOURCES]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_seconds = time.perf_counter() - t0
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
+            f.write(build_log)
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def modulus_args(spec):
+    """(p as 8 little-endian uint32 words in host memory, -p^-1 mod 2^32)."""
+    words = (ctypes.c_uint32 * 8)(*[(spec.p >> (32 * j)) & 0xFFFFFFFF for j in range(8)])
+    n0 = (-pow(spec.p, -1, 1 << 32)) % (1 << 32)
+    return words, n0
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def stream_ptr(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_operands(what: str, *tensors) -> int:
+    """Shared wrapper checks; returns n of the (16, n) operands."""
+    import torch
+
+    first = tensors[0]
+    for t in tensors:
+        if not t.is_cuda or t.device != first.device:
+            raise ValueError(f"{what}: all operands must lie on one CUDA device")
+        if t.dtype != torch.int32:
+            raise ValueError(f"{what}: operands must be int32 limbs, got {t.dtype}")
+        if t.dim() != 2 or t.shape[0] != 16 or t.shape != first.shape:
+            raise ValueError(f"{what}: operands must share one (16, n) shape, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous")
+    return first.shape[1]

@@ -1,0 +1,77 @@
+"""K1: elementwise Montgomery product on (16, n) int32 limb arrays.
+
+``mont_mul`` is the wrapper of the CUDA kernel ``csrc/mont_mul.cu``, which
+replaces the JAX package's Pallas kernel ``fields/pallas_kernels.py``
+``mont_mul_rows`` (body ``fields/vreg.py`` ``vmul``).  A tensor on the CPU
+takes ``mont_mul_plain``, the same 16-bit schoolbook product and word-by-word
+REDC written as torch ops in int64; a CUDA tensor launches the kernel or
+raises.  Both return the unique a*b*2^-256 mod p in [0, p) for inputs in
+[0, p), so they agree limb for limb.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _cuda
+from .spec import LIMB_BITS, LIMB_MASK, NLIMBS, FieldSpec
+
+
+def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product in plain torch ops (int64), any device.
+
+    Columns accumulate without carrying: a column of the 16x16 product sums
+    16 products below 2^32, and REDC adds at most 16 more plus carries, so
+    every column stays below 2^38 and ``t * n0`` below 2^54 — inside int64.
+    Every value is non-negative, so ``>>`` is a logical shift here.
+    """
+    prods = a.to(torch.int64).unsqueeze(1) * b.to(torch.int64).unsqueeze(0)  # (16, 16, ...)
+    # column sums of the schoolbook: row i of prods lands shifted by i (a
+    # strided view of buf with buf[i, i + j] = prods[i, j]), then one sum
+    buf = torch.zeros(
+        (NLIMBS, 2 * NLIMBS + 1) + tuple(a.shape[1:]), dtype=torch.int64, device=a.device
+    )
+    s0, s1 = buf.stride(0), buf.stride(1)
+    buf.as_strided(prods.shape, (s0 + s1, s1) + buf.stride()[2:]).copy_(prods)
+    t = buf.sum(dim=0)  # (33, ...)
+    p_col = torch.tensor(
+        [int(x) for x in spec.p_limbs], dtype=torch.int64, device=a.device
+    ).reshape((NLIMBS,) + (1,) * (a.dim() - 1))
+    n0 = spec.n0
+    for i in range(NLIMBS):
+        m = (t[i] * n0) & LIMB_MASK
+        t[i : i + NLIMBS] += m * p_col
+        # the low 16 bits of t[i] are now zero: the shift is an exact carry
+        t[i + 1] += t[i] >> LIMB_BITS
+    out = []
+    carry = None
+    for d in t[NLIMBS : 2 * NLIMBS]:
+        v = d if carry is None else d + carry
+        out.append(v & LIMB_MASK)
+        carry = v >> LIMB_BITS
+    # the value is below 2p < 2^256, so the final carry is zero
+    from .limb import cond_sub_p
+
+    return cond_sub_p(spec, torch.stack(out).to(torch.int32))
+
+
+def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product of two (16, n) int32 limb arrays (K1 wrapper)."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return mont_mul_plain(spec, a, b)
+    n = _cuda.check_operands("mont_mul", a, b)
+    out = torch.empty_like(a)
+    if n == 0:
+        return out
+    lib = _cuda.library()
+    words, n0 = _cuda.modulus_args(spec)
+    with torch.cuda.device(a.device):
+        rc = lib.h2_mont_mul(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), n, words, n0, _cuda.stream_ptr(a)
+        )
+    _cuda.check(rc, "mont_mul")
+    mont_mul.launches += 1
+    return out
+
+
+mont_mul.launches = 0

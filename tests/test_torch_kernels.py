@@ -1,0 +1,161 @@
+"""The CUDA kernels K1 / K2 / K3 against their plain torch versions, on a card.
+
+Every test here needs a CUDA device and skips without one: the kernels have
+no CPU mode.  The plain versions are held to the JAX package by the CPU
+tests (test_torch_fields.py, test_torch_curves.py); here the kernels are held
+to the plain versions, exactly, on all four fields and all three curves.
+This file imports no jax, so it runs on a machine without it:
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -m cuda -q
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from halo2_tpu_torch.circuit import Value
+from halo2_tpu_torch.curves import ALL_CURVES, host, point
+from halo2_tpu_torch.curves import ec_kernels as ec
+from halo2_tpu_torch.curves.spec import BN254_G1
+from halo2_tpu_torch.fields import ALL_FIELDS, limb
+from halo2_tpu_torch.fields.mont_mul import mont_mul, mont_mul_plain
+from halo2_tpu_torch.ops import msm as msm_ops
+from halo2_tpu_torch.ops import ntt as ntt_ops
+
+pytestmark = pytest.mark.cuda
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _values(p: int, seed: int, n: int) -> list:
+    rs = np.random.default_rng(seed)
+    raw = rs.integers(0, 1 << 62, size=(n, 5), dtype=np.int64)
+    vals = []
+    for row in raw:
+        v = 0
+        for w in row:
+            v = (v << 62) | int(w)
+        vals.append(v % p)
+    return ([0, 1, p - 1] + vals)[:n]
+
+
+@pytest.mark.parametrize("name", [f.name for f in ALL_FIELDS])
+@pytest.mark.parametrize("n", [1, 255, 4099])
+def test_mont_mul_kernel_matches_plain(dev, name, n):
+    (f,) = [f for f in ALL_FIELDS if f.name == name]
+    a = limb.from_ints(f, _values(f.p, 1, n), dev)
+    b = limb.from_ints(f, _values(f.p, 2, n)[::-1], dev)
+    assert torch.equal(mont_mul(f, a, b), mont_mul_plain(f, a, b))
+
+
+def _points(curve, seed: int, n: int = 40):
+    rs = np.random.default_rng(seed)
+    g = host.generator(curve)
+    pts = [host.mul(curve, g, int(k)) for k in rs.integers(1, 1 << 62, size=2 * n)]
+    ps, qs = pts[:n], pts[n:]
+    ps[0] = None
+    qs[1] = None
+    qs[2] = ps[2]
+    qs[3] = host.neg(curve, ps[3])
+    ps[4] = qs[4] = None
+    return ps, qs
+
+
+def _projective(curve, affine, dev):
+    pt = ec.ec_double_plain(curve, tuple(point.from_affine_ints(curve, affine, dev)))
+    return tuple(c.contiguous() for c in pt)
+
+
+@pytest.mark.parametrize("name", [c.name for c in ALL_CURVES])
+def test_ec_kernels_match_plain(dev, name):
+    (curve,) = [c for c in ALL_CURVES if c.name == name]
+    ps, qs = _points(curve, 3)
+    p, q = _projective(curve, ps, dev), _projective(curve, qs, dev)
+    for got, want in zip(ec.ec_add(curve, p, q), ec.ec_add_plain(curve, p, q)):
+        assert torch.equal(got, want)
+    for got, want in zip(ec.ec_double(curve, p), ec.ec_double_plain(curve, p)):
+        assert torch.equal(got, want)
+    summed = point.to_affine_ints(curve, point.Point(*ec.ec_add(curve, p, q)))
+    assert summed == [host.double(curve, host.add(curve, a, b)) for a, b in zip(ps, qs)]
+
+
+def test_wrappers_check_operands_and_count_launches(dev):
+    f = ALL_FIELDS[0]
+    a = limb.from_ints(f, _values(f.p, 4, 64), dev)
+    with pytest.raises(ValueError, match="int32"):
+        mont_mul(f, a.long(), a.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        mont_mul(f, a[:, ::2], a[:, ::2])
+    with pytest.raises(ValueError, match="shape"):
+        mont_mul(f, a, a[:, :32])
+    with pytest.raises(ValueError, match="CUDA"):
+        mont_mul(f, a, a.cpu())
+    before = mont_mul.launches
+    mont_mul(f, a, a)
+    assert mont_mul.launches == before + 1
+    assert mont_mul(f, a[:, :0].contiguous(), a[:, :0].contiguous()).shape == (16, 0)
+    assert mont_mul.launches == before + 1  # nothing to launch for n = 0
+    coords = tuple(limb.from_ints(BN254_G1.base, [1] * 8, dev) for _ in range(3))
+    before = ec.ec_add.launches, ec.ec_double.launches
+    ec.ec_add(BN254_G1, coords, coords)
+    ec.ec_double(BN254_G1, coords)
+    assert (ec.ec_add.launches, ec.ec_double.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_msm_and_ntt_on_the_card_match_cpu(dev):
+    f = BN254_G1.scalar
+    ps, _ = _points(BN254_G1, 5, n=64)
+    ps = [p for p in ps if p is not None]
+    scalars = _values(f.p, 6, len(ps))
+    got = {}
+    for d in ("cpu", dev):
+        r = msm_ops.msm(
+            BN254_G1, limb.from_ints(f, scalars, d), point.from_affine_ints(BN254_G1, ps, d)
+        )
+        got[str(d)] = point.to_affine_ints(BN254_G1, r)
+    assert got["cpu"] == got[str(dev)] == [host.msm(BN254_G1, scalars, ps)]
+    k = 10
+    omega = pow(f.root_of_unity, 1 << (f.s - k), f.p)
+    vals = _values(f.p, 7, 1 << k)
+    outs = []
+    for d in ("cpu", dev):
+        tw = ntt_ops.power_table(f, omega, 1 << (k - 1), d)
+        wc = ntt_ops.cross_twiddles(f, omega, k, d)
+        outs.append(ntt_ops.ntt_sixstep(f, limb.from_ints(f, vals, d), tw, wc, k).cpu())
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_entry_proof_on_the_card_matches_pin(dev):
+    import sys
+
+    sys.path.insert(0, HERE)
+    from torch_circuits import EntryCircuit
+
+    from halo2_tpu_torch.plonk import create_proof, keygen_pk, keygen_vk, verify_proof
+    from halo2_tpu_torch.poly.kzg import ParamsKZG
+    from halo2_tpu_torch.poly.multiopen_gwc import gwc_create_proof, gwc_verify_proof
+    from halo2_tpu_torch.transcript import Blake2bTranscript
+    from halo2_tpu_torch.utils.rng import FieldRng
+
+    spec = BN254_G1.scalar
+    params = ParamsKZG.setup_host(6, seed=b"dryrun", device=dev)
+    circuit = EntryCircuit(1, Value.known(5))
+    vk = keygen_vk(params, circuit.without_witnesses())
+    pk = keygen_pk(params, vk, circuit.without_witnesses())
+    inst = pow(5, 4, spec.p)
+    proof = create_proof(
+        params, pk, [circuit], [[[inst]]], FieldRng(spec, b"dryrun-proof"),
+        Blake2bTranscript(BN254_G1), gwc_create_proof,
+    )
+    with open(os.path.join(HERE, "data", "dryrun_proof_k6.hex")) as fh:
+        assert proof == bytes.fromhex(fh.read().strip())
+    assert verify_proof(params, vk, [[[inst]]], Blake2bTranscript(BN254_G1, proof), gwc_verify_proof)
