@@ -20,7 +20,22 @@ Phases, one line each, every failure raising (non-zero exit, no result line):
    benches/plonk.rs workload), keygen_vk -> keygen_pk -> create_proof ->
    verify_proof through the real pairing; a proof with one flipped byte is
    rejected.  The kernels' launch counters are zeroed just before and read
-   just after this phase; each must be > 0.
+   just after this phase; K1, K2 and K3 must each be > 0;
+7. K4 (lane-tiled Montgomery multiply) against its plain version and against
+   K1, n = 4099, 2^18 (the roofline's chained width) and 2^16, BN254 Fr and
+   Fq including 0, 1 and p-1: exact equality; then K1, K4, K2 and K3 on the
+   roofline's own n = 2^22 operands (``roofline.share_operands``) against
+   their plain versions, slice by slice: exact equality;
+8. the roofline path: B1 (all three forms) and B2 exactly equal to their plain
+   versions on the full (2048, 128) array at 2^10 and 2^16 steps, and 1024
+   elements at 2^16 steps equal to a numpy loop on the host; then, with
+   every launch counter zeroed just before and read just after,
+   ``halo2_tpu_torch.bench.roofline.run()`` prints every roofline metric.
+   K1, K4, B1 and B2 must each be launched (a CUDA graph's kernels count
+   once per replay); a chained K1 or K4 output that differs from the plain
+   chain or from the other's, a rate above 105% of its ceiling, a chained
+   loop missing from the SASS, or a K1 instruction mix that differs from
+   the model's constants raises.
 
 Then one JSON line with every kernel's launches, error and times, and as the
 last line ``{"ok": true, "device": {...}}``.  Times are CUDA-event times on
@@ -165,6 +180,116 @@ def phase_ec(torch, point_mod, ec, curve, rs, dev):
     return results
 
 
+def phase_k4(torch, limb, mont_mul_mod, spec, rs, dev):
+    # 2^18 is the roofline's chained width; the timed operands are the last, 2^16
+    for n in (4099, 1 << 18, 1 << 16):
+        a = limb.from_ints(spec, random_field(spec, n, rs), dev)
+        b = limb.from_ints(spec, random_field(spec, n, rs)[::-1], dev)
+        out = mont_mul_mod.mont_mul_tiled(spec, a, b)
+        ref = mont_mul_mod.mont_mul_plain(spec, a, b)
+        k1 = mont_mul_mod.mont_mul(spec, a, b)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(out, ref), max_abs_err(out, k1))
+        if err != 0 or not torch.equal(out, ref) or not torch.equal(out, k1):
+            raise AssertionError(f"K4 {spec.name} n={n}: kernel differs from plain or K1 "
+                                 f"(max |err| {err})")
+        r_inv = pow(spec.r, -1, spec.p)
+        got = limb.limbs_np_to_ints(out[:, -8:].cpu().numpy())
+        xs = limb.limbs_np_to_ints(a[:, -8:].cpu().numpy())
+        ys = limb.limbs_np_to_ints(b[:, -8:].cpu().numpy())
+        if got != [x * y * r_inv % spec.p for x, y in zip(xs, ys)]:
+            raise AssertionError(f"K4 {spec.name} n={n}: ragged edge differs from Python ints")
+    ms = cuda_ms(lambda: mont_mul_mod.mont_mul_tiled(spec, a, b), 50)
+    k1_ms = cuda_ms(lambda: mont_mul_mod.mont_mul(spec, a, b), 50)
+    plain_ms = cuda_ms(lambda: mont_mul_mod.mont_mul_plain(spec, a, b), 5)
+    ms2 = cuda_ms(lambda: mont_mul_mod.mont_mul_tiled(spec, a, b), 50)
+    log(f"[7] K4 mont_mul_tiled {spec.name} n=4099, 2^18, 2^16: exact match with plain and K1; "
+        f"n=2^16 kernel {ms:.4f} / {ms2:.4f} ms, K1 {k1_ms:.4f} ms, plain {plain_ms:.3f} ms")
+    return {"max_abs_err": err, "ms": min(ms, ms2), "plain_ms": plain_ms, "k1_ms": k1_ms}
+
+
+def phase_shares(torch, roofline, dev, step: int = 1 << 20):
+    """The four field kernels on the operands the roofline's kernel_shares
+    times at n = 2^22, each against its plain version in column slices."""
+    for name, (kern, plain, args) in roofline.share_operands(dev).items():
+        out = kern(*args)
+        out = out if isinstance(out, tuple) else (out,)
+        n = out[0].shape[1]
+        err = 0
+        for lo in range(0, n, step):
+            cut = [tuple(c[:, lo:lo + step] for c in a) if isinstance(a, tuple)
+                   else a[:, lo:lo + step] for a in args]
+            ref = plain(*cut)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            err = max([err] + [max_abs_err(o[:, lo:lo + step], r) for o, r in zip(out, ref)])
+        if err != 0:
+            raise AssertionError(f"{name} n={n}: kernel differs from plain (max |err| {err})")
+        log(f"[7] {name} n={n} (the roofline's operands): exact match with plain")
+        del out
+
+
+def numpy_chain(name: str, x, iters: int):
+    """The chains in numpy uint32 / uint64 arithmetic, which wraps as the card does."""
+    x64, m32, s32 = x.astype(np.uint64), np.uint64(0xFFFFFFFF), np.uint64(32)
+    y = x.copy()
+    if name == "int_muladd":
+        for _ in range(iters):
+            y = y * x + x
+        return y
+    if name == "int_muladd_hi":
+        for _ in range(iters):
+            y = ((y.astype(np.uint64) * x64) >> s32).astype(np.uint32) + x
+        return y
+    if name == "int_muladd_wide":
+        s = x64.copy()
+        for _ in range(iters):
+            s = (s & m32) * x64 + s
+        return ((s & m32) ^ (s >> s32)).astype(np.uint32)
+    for _ in range(iters):
+        y = (y + x) & np.uint32(0xFFFF)
+    return y
+
+
+def phase_chains(torch, ic, rs, dev):
+    x = rs.integers(0, 1 << 32, size=(2048, 128), dtype=np.uint64).astype(np.uint32)
+    x[0, :4] = [0, 1, 0xFFFFFFFF, 0x80000000]
+    xt = torch.from_numpy(x.view(np.int32)).to(dev)
+    idx = np.linspace(0, x.size - 1, 1024).astype(np.int64)
+    chains = {
+        "int_muladd": (lambda t, k: ic.int_muladd_chain(t, k),
+                       lambda t, k: ic.int_muladd_plain(t, k)),
+        "int_muladd_wide": (lambda t, k: ic.int_muladd_chain(t, k, "wide"),
+                            lambda t, k: ic.int_muladd_plain(t, k, "wide")),
+        "int_muladd_hi": (lambda t, k: ic.int_muladd_chain(t, k, "hi"),
+                          lambda t, k: ic.int_muladd_plain(t, k, "hi")),
+        "int_addmask": (ic.int_addmask_chain, ic.int_addmask_plain),
+    }
+    results = {}
+    for name, (kern, plain) in chains.items():
+        out = kern(xt, 1 << 10)
+        ref = plain(xt, 1 << 10)
+        torch.cuda.synchronize()
+        err = max_abs_err(out, ref)
+        if err != 0 or not torch.equal(out, ref):
+            raise AssertionError(f"{name}: kernel differs from plain at 2^10 steps "
+                                 f"(max |err| {err})")
+        out = kern(xt, 1 << 16)
+        if not torch.equal(out, plain(xt, 1 << 16)):
+            raise AssertionError(f"{name}: kernel differs from plain at 2^16 steps")
+        got = out.cpu().numpy().view(np.uint32).reshape(-1)[idx]
+        want = numpy_chain(name, x.reshape(-1)[idx], 1 << 16)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{name}: kernel differs from numpy at 2^16 steps")
+        ms = cuda_ms(lambda: kern(xt, 1 << 10), 20)
+        plain_ms = cuda_ms(lambda: plain(xt, 1 << 10), 2)
+        ms2 = cuda_ms(lambda: kern(xt, 1 << 10), 20)
+        results[name] = {"max_abs_err": err, "ms": min(ms, ms2), "plain_ms": plain_ms}
+        log(f"[8] {name} (2048, 128): exact match with plain at 2^10 and 2^16 steps and "
+            f"with numpy at 2^16 (1024 elements); 2^10 steps kernel {ms:.4f} / {ms2:.4f} ms, "
+            f"plain {plain_ms:.3f} ms")
+    return results
+
+
 def main() -> None:
     import torch
 
@@ -182,6 +307,8 @@ def main() -> None:
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from halo2_tpu_torch import _cuda
+    from halo2_tpu_torch.bench import int_chains as ic
+    from halo2_tpu_torch.bench import roofline
     from halo2_tpu_torch.curves import ec_kernels as ec
     from halo2_tpu_torch.curves import point as point_mod
     from halo2_tpu_torch.curves.spec import BN254_G1
@@ -250,11 +377,15 @@ def main() -> None:
     log(f"[6] k={k} SRS (host) {setup_s:.2f} s")
     bench = BenchPlonkCircuit(k, Value.known(2))
 
+    counted = {
+        "mont_mul": mont_mul_mod.mont_mul, "ec_add": ec.ec_add, "ec_double": ec.ec_double,
+        "mont_mul_tiled": mont_mul_mod.mont_mul_tiled,
+        "int_muladd": ic.int_muladd_chain, "int_addmask": ic.int_addmask_chain,
+    }
     os.environ["HALO2_TPU_PROFILE"] = "1"
     profiling.report(reset=True)
-    mont_mul_mod.mont_mul.launches = 0
-    ec.ec_add.launches = 0
-    ec.ec_double.launches = 0
+    for fn in counted.values():
+        fn.launches = 0
     walls = {}
     t0 = time.perf_counter()
     vk = keygen_vk(params, bench.without_witnesses())
@@ -274,11 +405,7 @@ def main() -> None:
     t0 = time.perf_counter()
     ok = verify_proof(params, vk, [[]], Blake2bTranscript(BN254_G1, proof), gwc_verify_proof)
     walls["verify"] = time.perf_counter() - t0
-    launches = {
-        "mont_mul": mont_mul_mod.mont_mul.launches,
-        "ec_add": ec.ec_add.launches,
-        "ec_double": ec.ec_double.launches,
-    }
+    launches = {name: fn.launches for name, fn in counted.items()}
     if not ok:
         raise AssertionError("k=14 proof rejected")
     bad = bytearray(proof)
@@ -292,10 +419,33 @@ def main() -> None:
     for name, calls, secs in phases:
         log(f"      {secs:8.3f} s  {calls:3d}x  {name}")
     log(f"[6] launches during keygen + 2 proves + verify: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in ("mont_mul", "ec_add", "ec_double"):
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     log(f"[6] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # ---- 7: K4 against its plain version and K1 ------------------------------
+    k4 = {spec.name: phase_k4(torch, limb, mont_mul_mod, spec, rs, dev)
+          for spec in (BN254_FR, BN254_FQ)}
+    phase_shares(torch, roofline, dev)
+
+    # ---- 8: the roofline path -------------------------------------------------
+    chains = phase_chains(torch, ic, rs, dev)
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    roof = roofline.run(emit=lambda line: log("    " + line))
+    roof_launches = {name: fn.launches for name, fn in counted.items()}
+    log(f"[8] roofline {time.perf_counter() - t0:.2f} s; launches during it: {roof_launches}")
+    for name in ("mont_mul", "mont_mul_tiled", "int_muladd", "int_addmask"):
+        if roof_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the roofline path")
+    mix = roof["sass"]["mont_mul"]
+    if (mix["imad"], mix["other"]) != (roofline.K1_IMAD, roofline.K1_OTHER):
+        raise AssertionError(f"K1 SASS mix {mix} differs from the model's constants "
+                             f"({roofline.K1_IMAD}, {roofline.K1_OTHER})")
+    log(f"[8] SASS: K1 {mix['imad']} IMAD-class + {mix['other']} other, as the model says; "
+        + "; ".join(f"{k} {v}" for k, v in roof["sass"].items() if k != "mont_mul"))
 
     kernels = [
         {"name": "mont_mul", "route": "cuda", "source": "halo2_tpu_torch/csrc/mont_mul.cu",
@@ -307,6 +457,19 @@ def main() -> None:
         {"name": "ec_double", "route": "cuda", "source": "halo2_tpu_torch/csrc/ec.cu",
          "replaces": "halo2_tpu/curves/pallas_ec.py:181",
          "launches": launches["ec_double"], **ec_res["ec_double"]},
+        {"name": "mont_mul_tiled", "route": "cuda",
+         "source": "halo2_tpu_torch/csrc/mont_mul_tiled.cu",
+         "replaces": "halo2_tpu/fields/pallas_kernels.py:80",
+         "launches": roof_launches["mont_mul_tiled"],
+         **{k: v for k, v in k4[BN254_FR.name].items() if k != "k1_ms"}},
+        {"name": "int_muladd", "route": "cuda", "source": "halo2_tpu_torch/csrc/roofline.cu",
+         "replaces": "bench_roofline.py:53", "launches": roof_launches["int_muladd"],
+         **chains["int_muladd"],
+         "max_abs_err": max(chains[f]["max_abs_err"]
+                            for f in ("int_muladd", "int_muladd_wide", "int_muladd_hi"))},
+        {"name": "int_addmask", "route": "cuda", "source": "halo2_tpu_torch/csrc/roofline.cu",
+         "replaces": "bench_roofline.py:85", "launches": roof_launches["int_addmask"],
+         **chains["int_addmask"]},
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,5 +5,7 @@ the same module paths and function names, field elements in the same
 ``(16, ...)`` limb-major Montgomery layout, and bit-identical proofs.  Field
 multiplication (K1, ``fields/mont_mul.py``) and complete EC add / double
 (K2 / K3, ``curves/ec_kernels.py``) run as CUDA kernels (``csrc/``) on tensors
-on the card and as their plain torch versions on tensors on the CPU.
+on the card and as their plain torch versions on tensors on the CPU, as do
+K4 (``fields/mont_mul.py``, the TPU's 16-bit Montgomery algorithm) and the
+issue-rate chains B1 / B2 of the roofline (``bench/``).
 """

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/``).
 
-The sources compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, loaded with ``ctypes``.  The build runs at
+The sources compile with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per
+source and all of them at once, and link into one shared library with a
+plain C interface, loaded with ``ctypes``.  The build runs at
 first use, into ``halo2_tpu_torch/_build/<hash>/``, where the hash covers the
 sources and the flags, so an edited source rebuilds and an unchanged one is
 reused.  Nothing here runs at import time: the CPU tests import every module
@@ -19,14 +20,15 @@ import time
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-_SOURCES = ("mont_mul.cu", "ec.cu")
+_SOURCES = ("mont_mul.cu", "ec.cu", "mont_mul_tiled.cu", "roofline.cu")
 _HEADERS = ("field.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib = None
+_path = None
 build_log = ""  # nvcc's output of the build this process ran ("" if it reused one)
 build_seconds = 0.0
 
@@ -35,15 +37,31 @@ _SIGNATURES = {
     "h2_mont_mul": [_P, _P, _P, ctypes.c_int64, _P, ctypes.c_uint32, _P],
     "h2_ec_add": [_P] * 9 + [ctypes.c_int64, _P, ctypes.c_uint32, ctypes.c_uint32, _P],
     "h2_ec_double": [_P] * 6 + [ctypes.c_int64, _P, ctypes.c_uint32, ctypes.c_uint32, _P],
+    "h2_mont_mul_tiled": [_P, _P, _P, ctypes.c_int64, _P, ctypes.c_uint32, _P],
+    "h2_int_muladd": [_P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P],
+    "h2_int_addmask": [_P, _P, ctypes.c_int64, ctypes.c_int, _P],
 }
 
 
-def _nvcc() -> str:
+def _tool(name: str) -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): cannot build the kernels")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
+    return os.path.join(CUDA_HOME, "bin", name)
+
+
+def _run_all(cmds) -> tuple[list, str]:
+    """Run the commands at once; (return codes, their output in order)."""
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in cmds]
+    procs = [subprocess.Popen(c, stdout=f, stderr=subprocess.STDOUT) for c, f in zip(cmds, logs)]
+    rcs = [p.wait() for p in procs]
+    out = ""
+    for f in logs:
+        f.seek(0)
+        out += f.read()
+        f.close()
+    return rcs, out
 
 
 def _source_hash() -> str:
@@ -56,7 +74,7 @@ def _source_hash() -> str:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _lib, build_log, build_seconds
+    global _lib, _path, build_log, build_seconds
     if _lib is not None:
         return _lib
     out_dir = os.path.join(_BUILD, _source_hash())
@@ -67,14 +85,22 @@ def library() -> ctypes.CDLL:
         # loads a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [os.path.join(_CSRC, s) for s in _SOURCES]
+        objs = [f"{tmp[:-3]}.{s[:-3]}.o" for s in _SOURCES]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        rcs, build_log = _run_all(
+            [[_tool("nvcc"), *NVCC_FLAGS, "-c", "-o", o, os.path.join(_CSRC, s)]
+             for s, o in zip(_SOURCES, objs)]
+        )
+        if not any(rcs):
+            rc, link_log = _run_all([[_tool("nvcc"), "-shared", "-o", tmp, *objs]])
+            rcs, build_log = rc, build_log + link_log
         build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        for o in objs:
+            if os.path.exists(o):
+                os.unlink(o)
+        if any(rcs):
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+            raise RuntimeError(f"nvcc failed ({rcs}):\n{build_log}")
         with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
             f.write(build_log)
         os.replace(tmp, path)
@@ -83,8 +109,17 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    _lib = lib
+    _lib, _path = lib, path
     return lib
+
+
+def sass() -> str:
+    """``cuobjdump -sass`` of the loaded library: the instructions the card runs."""
+    library()
+    proc = subprocess.run([_tool("cuobjdump"), "-sass", _path], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed ({proc.returncode}):\n{proc.stderr}")
+    return proc.stdout
 
 
 def modulus_args(spec):
@@ -92,6 +127,12 @@ def modulus_args(spec):
     words = (ctypes.c_uint32 * 8)(*[(spec.p >> (32 * j)) & 0xFFFFFFFF for j in range(8)])
     n0 = (-pow(spec.p, -1, 1 << 32)) % (1 << 32)
     return words, n0
+
+
+def modulus16_args(spec):
+    """(p as 16 little-endian 16-bit limbs in host memory, -p^-1 mod 2^16)."""
+    limbs = (ctypes.c_uint32 * 16)(*[(spec.p >> (16 * j)) & 0xFFFF for j in range(16)])
+    return limbs, (-pow(spec.p, -1, 1 << 16)) % (1 << 16)
 
 
 def check(rc: int, what: str) -> None:

@@ -1,4 +1,4 @@
-"""K1: elementwise Montgomery product on (16, n) int32 limb arrays.
+"""K1 and K4: elementwise Montgomery products on (16, n) int32 limb arrays.
 
 ``mont_mul`` is the wrapper of the CUDA kernel ``csrc/mont_mul.cu``, which
 replaces the JAX package's Pallas kernel ``fields/pallas_kernels.py``
@@ -7,6 +7,11 @@ takes ``mont_mul_plain``, the same 16-bit schoolbook product and word-by-word
 REDC written as torch ops in int64; a CUDA tensor launches the kernel or
 raises.  Both return the unique a*b*2^-256 mod p in [0, p) for inputs in
 [0, p), so they agree limb for limb.
+
+``mont_mul_tiled`` is the wrapper of K4, ``csrc/mont_mul_tiled.cu``, which
+replaces the lane-tiled Pallas kernel ``mont_mul_pallas`` (body
+``_mont_mul_block``) with the TPU's own 16-bit algorithm; its plain version
+is ``mont_mul_plain`` too.
 """
 
 from __future__ import annotations
@@ -75,3 +80,32 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 mont_mul.launches = 0
+
+
+def mont_mul_tiled(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product of two (16, n) int32 limb arrays (K4 wrapper).
+
+    The kernel computes the JAX package's ``_mont_mul_block`` algorithm:
+    16-bit schoolbook with lo/hi halves, word-by-word REDC, conditional
+    subtract, in (16, 512) column tiles with the ragged last tile masked.
+    Its plain version is ``mont_mul_plain``, which computes that algorithm
+    in int64; a tensor on the CPU takes it.
+    """
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return mont_mul_plain(spec, a, b)
+    n = _cuda.check_operands("mont_mul_tiled", a, b)
+    out = torch.empty_like(a)
+    if n == 0:
+        return out
+    lib = _cuda.library()
+    limbs, n0 = _cuda.modulus16_args(spec)
+    with torch.cuda.device(a.device):
+        rc = lib.h2_mont_mul_tiled(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), n, limbs, n0, _cuda.stream_ptr(a)
+        )
+    _cuda.check(rc, "mont_mul_tiled")
+    mont_mul_tiled.launches += 1
+    return out
+
+
+mont_mul_tiled.launches = 0

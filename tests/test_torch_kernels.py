@@ -1,4 +1,4 @@
-"""The CUDA kernels K1 / K2 / K3 against their plain torch versions, on a card.
+"""The CUDA kernels K1-K4, B1 and B2 against their plain torch versions, on a card.
 
 Every test here needs a CUDA device and skips without one: the kernels have
 no CPU mode.  The plain versions are held to the JAX package by the CPU
@@ -15,12 +15,15 @@ import numpy as np
 import pytest
 import torch
 
+from halo2_tpu_torch import _cuda
+from halo2_tpu_torch.bench import int_chains as ic
+from halo2_tpu_torch.bench import roofline
 from halo2_tpu_torch.circuit import Value
 from halo2_tpu_torch.curves import ALL_CURVES, host, point
 from halo2_tpu_torch.curves import ec_kernels as ec
 from halo2_tpu_torch.curves.spec import BN254_G1
 from halo2_tpu_torch.fields import ALL_FIELDS, limb
-from halo2_tpu_torch.fields.mont_mul import mont_mul, mont_mul_plain
+from halo2_tpu_torch.fields.mont_mul import mont_mul, mont_mul_plain, mont_mul_tiled
 from halo2_tpu_torch.ops import msm as msm_ops
 from halo2_tpu_torch.ops import ntt as ntt_ops
 
@@ -55,6 +58,74 @@ def test_mont_mul_kernel_matches_plain(dev, name, n):
     a = limb.from_ints(f, _values(f.p, 1, n), dev)
     b = limb.from_ints(f, _values(f.p, 2, n)[::-1], dev)
     assert torch.equal(mont_mul(f, a, b), mont_mul_plain(f, a, b))
+
+
+@pytest.mark.parametrize("name", [f.name for f in ALL_FIELDS])
+@pytest.mark.parametrize("n", [1, 511, 513, 4099])
+def test_mont_mul_tiled_kernel_matches_plain_and_k1(dev, name, n):
+    (f,) = [f for f in ALL_FIELDS if f.name == name]
+    a = limb.from_ints(f, _values(f.p, 1, n), dev)
+    b = limb.from_ints(f, _values(f.p, 2, n)[::-1], dev)
+    got = mont_mul_tiled(f, a, b)
+    assert torch.equal(got, mont_mul_plain(f, a, b))
+    assert torch.equal(got, mont_mul(f, a, b))
+
+
+def _chain_input(dev, shape=(33, 128)):
+    x = np.random.default_rng(8).integers(0, 1 << 32, size=shape, dtype=np.uint64)
+    x = x.astype(np.uint32)
+    x.reshape(-1)[:4] = [0, 1, 0xFFFFFFFF, 0x80000000]
+    return torch.from_numpy(x.view(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 17, 300])
+@pytest.mark.parametrize("form", ["lo", "wide", "hi", "addmask"])
+def test_chain_kernels_match_plain(dev, form, iters):
+    x = _chain_input(dev)
+    if form == "addmask":
+        got, want = ic.int_addmask_chain(x, iters), ic.int_addmask_plain(x, iters)
+    else:
+        got, want = ic.int_muladd_chain(x, iters, form), ic.int_muladd_plain(x, iters, form)
+    assert torch.equal(got, want)
+
+
+def test_chain_wrappers_check_operands_and_count_launches(dev):
+    x = _chain_input(dev)
+    for fn in (ic.int_muladd_chain, ic.int_addmask_chain):
+        with pytest.raises(ValueError, match="int32"):
+            fn(x.long(), 4)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(x[:, ::2], 4)
+        with pytest.raises(ValueError, match="iters"):
+            fn(x, -1)
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(x.to("meta"), 4)
+        before = fn.launches
+        fn(x, 4)
+        assert fn.launches == before + 1
+        assert fn(x[:0], 4).shape == (0, 128)
+        assert fn.launches == before + 1  # nothing to launch for an empty operand
+    with pytest.raises(ValueError, match="form"):
+        ic.int_muladd_chain(x, 4, "wider")
+
+
+def test_graph_chain_counts_the_replayed_launches(dev):
+    f = ALL_FIELDS[0]
+    a = limb.from_ints(f, _values(f.p, 9, 4096), dev)
+    before = mont_mul.launches
+    _, out = roofline.graph_chain(lambda acc: mont_mul(f, acc, a), a, 5, 2, counted=(mont_mul,))
+    # two warm-up calls, then (1 warm-up + 2 timed replays) x 5 kernels
+    assert mont_mul.launches == before + 2 + 3 * 5
+    want = a
+    for _ in range(5):
+        want = mont_mul_plain(f, want, a)
+    assert torch.equal(out, want)
+
+
+def test_roofline_sass_checks_pass_on_the_built_library(dev):
+    report = roofline.sass_report(_cuda.sass())
+    assert (report["mont_mul"]["imad"], report["mont_mul"]["other"]) == (
+        roofline.K1_IMAD, roofline.K1_OTHER)
 
 
 def _points(curve, seed: int, n: int = 40):
@@ -99,11 +170,14 @@ def test_wrappers_check_operands_and_count_launches(dev):
         mont_mul(f, a, a[:, :32])
     with pytest.raises(ValueError, match="CUDA"):
         mont_mul(f, a, a.cpu())
-    before = mont_mul.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        mont_mul_tiled(f, a[:, ::2], a[:, ::2])
+    before = mont_mul.launches, mont_mul_tiled.launches
     mont_mul(f, a, a)
-    assert mont_mul.launches == before + 1
+    mont_mul_tiled(f, a, a)
+    assert (mont_mul.launches, mont_mul_tiled.launches) == (before[0] + 1, before[1] + 1)
     assert mont_mul(f, a[:, :0].contiguous(), a[:, :0].contiguous()).shape == (16, 0)
-    assert mont_mul.launches == before + 1  # nothing to launch for n = 0
+    assert mont_mul.launches == before[0] + 1  # nothing to launch for n = 0
     coords = tuple(limb.from_ints(BN254_G1.base, [1] * 8, dev) for _ in range(3))
     before = ec.ec_add.launches, ec.ec_double.launches
     ec.ec_add(BN254_G1, coords, coords)
