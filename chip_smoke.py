@@ -35,8 +35,28 @@ Phases, one line each, every failure raising (non-zero exit, no result line):
    once per replay); a chained K1 or K4 output that differs from the plain
    chain or from the other's, a rate above 105% of its ceiling, a chained
    loop missing from the SASS, or a K1 instruction mix that differs from
-   the model's constants raises.
+   the model's constants raises;
+9. the kernels on the Pasta moduli: K1 on Pasta Fp and Fq (n = 2^16,
+   including 0, 1 and p-1), K2 / K3 on Pallas and Vesta points (n = 2^14,
+   including the identity, P+P and P+(-P)), each exactly equal to its plain
+   version; then the device ``ParamsKZG.setup(14)`` (``batch_scalar_mul``)
+   must give the same affine ``g`` and ``g_lagrange`` as phase 6's
+   ``setup_host(14)``, both walls printed;
+10. the pins and lookups + SHPLONK: the port's proofs of the
+   tests/plonk_api.rs circuit (two instances, k=5) must equal
+   ``tests/data/plonk_api_{gwc,shplonk,ipa}_k5.hex`` on the card; then
+   ``LookupRangeCircuit`` (the reference's benches/dev_lookup.rs shape) at
+   k=14 on BN254 through keygen, two proves and SHPLONK verify with the real
+   pairing; a flipped byte is rejected;
+11. IPA at full width, the reference's criterion workload (benches/plonk.rs,
+   ``ParamsIPA::<EqAffine>``): ``BenchPlonkCircuit`` at k=14 over
+   ``ParamsIPA.setup(14, VESTA)`` (the SSWU SRS on the host, g_to_lagrange
+   on the card), keygen, two proves, verify through ``IPASingleStrategy``; a
+   flipped byte is rejected; ``BatchVerifier`` accepts two good proofs and
+   rejects a good one beside a tampered one.
 
+Phases 6, 10 and 11 each zero the kernels' launch counters just before they
+start and read them just after; K1, K2 and K3 must each have been launched.
 Then one JSON line with every kernel's launches, error and times, and as the
 last line ``{"ok": true, "device": {...}}``.  Times are CUDA-event times on
 this card, kernel and plain version measured in turns in the same run.
@@ -93,7 +113,7 @@ def random_field(spec, n: int, rs) -> list:
     return vals
 
 
-def phase_k1(torch, limb, mont_mul_mod, spec, rs, dev):
+def phase_k1(torch, limb, mont_mul_mod, spec, rs, dev, tag="[3]"):
     n = 1 << 16
     a = limb.from_ints(spec, random_field(spec, n, rs), dev)
     b = limb.from_ints(spec, random_field(spec, n, rs)[::-1], dev)
@@ -113,29 +133,27 @@ def phase_k1(torch, limb, mont_mul_mod, spec, rs, dev):
     ms = cuda_ms(lambda: mont_mul_mod.mont_mul(spec, a, b), 50)
     plain_ms = cuda_ms(lambda: mont_mul_mod.mont_mul_plain(spec, a, b), 5)
     ms2 = cuda_ms(lambda: mont_mul_mod.mont_mul(spec, a, b), 50)
-    log(f"[3] K1 mont_mul {spec.name} n={n}: exact match; kernel {ms:.4f} / {ms2:.4f} ms, "
+    log(f"{tag} K1 mont_mul {spec.name} n={n}: exact match; kernel {ms:.4f} / {ms2:.4f} ms, "
         f"plain {plain_ms:.3f} ms")
     return {"max_abs_err": err, "ms": min(ms, ms2), "plain_ms": plain_ms}
 
 
-def random_g1_points(curve, n: int, rs) -> list:
-    """n affine BN254 G1 points with seeded x (cofactor 1: every curve point
-    is in the group); p = 3 mod 4, so sqrt is one pow."""
-    p = curve.base.p
-    pts = []
-    for x in random_field(curve.base, 4 * n, rs)[3:]:
-        rhs = (x * x * x + curve.b) % p
-        y = pow(rhs, (p + 1) // 4, p)
-        if y * y % p == rhs:
-            pts.append((x, y))
-            if len(pts) == n:
-                return pts
-    raise AssertionError("not enough curve points")
+def chained_points(curve, n: int, rs) -> list:
+    """n distinct affine points R + i*S for seeded multiples R, S of the
+    generator: one host add each (no square roots)."""
+    from halo2_tpu_torch.curves import host
+
+    g = host.generator(curve)
+    r, s = (host.mul(curve, g, int(v)) for v in rs.integers(1, 1 << 62, size=2))
+    pts = [r]
+    for _ in range(n - 1):
+        pts.append(host.add(curve, pts[-1], s))
+    return pts
 
 
-def phase_ec(torch, point_mod, ec, curve, rs, dev):
+def phase_ec(torch, point_mod, ec, curve, rs, dev, tag="[4]"):
     n = 1 << 14
-    aff = random_g1_points(curve, 2 * n, rs)
+    aff = chained_points(curve, 2 * n, rs)
     p_aff, q_aff = aff[:n], aff[n:]
     p_aff[0] = None                               # identity + Q
     q_aff[1] = None                               # P + identity
@@ -167,7 +185,7 @@ def phase_ec(torch, point_mod, ec, curve, rs, dev):
         plain_ms = cuda_ms(lambda: plain(curve, *args), 3)
         ms2 = cuda_ms(lambda: kern(curve, *args), 50)
         results[name] = {"max_abs_err": err, "ms": min(ms, ms2), "plain_ms": plain_ms}
-        log(f"[4] K {name} n={n}: exact match (projective and affine); "
+        log(f"{tag} K {name} {curve.name} n={n}: exact match (projective and affine); "
             f"kernel {ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.3f} ms")
     # the special cases, against host arithmetic
     from halo2_tpu_torch.curves import host
@@ -290,6 +308,191 @@ def phase_chains(torch, ic, rs, dev):
     return results
 
 
+def rejects_flipped(verify, proof: bytes, at: int) -> bool:
+    """verify() on the proof with one byte flipped: rejected means False, or
+    the transcript's decode error (ValueError), caught for this call only."""
+    bad = bytearray(proof)
+    bad[at] ^= 1
+    try:
+        return verify(bytes(bad)) is False
+    except ValueError:
+        return True
+
+
+def start_counting(torch, counted) -> None:
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+
+
+def read_counts(torch, counted, tag: str, names=("mont_mul", "ec_add", "ec_double")) -> dict:
+    launches = {name: fn.launches for name, fn in counted.items()}
+    log(f"{tag} launches: {launches}")
+    log(f"{tag} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"{tag} kernel {name} was not launched")
+    return launches
+
+
+def log_walls(tag: str, walls: dict, phases) -> None:
+    log(f"{tag} walls (s): " + " ".join(f"{k}={v:.3f}" for k, v in walls.items()))
+    log(f"{tag} warm prove phases (synced), {sum(t for _, _, t in phases):.3f} s covered:")
+    for name, calls, secs in phases:
+        log(f"      {secs:8.3f} s  {calls:3d}x  {name}")
+
+
+def keygen_and_prove(torch, profiling, params, circuit, prove):
+    """keygen_vk + keygen_pk, then a cold and a warm prove; (vk, proof,
+    walls, the warm prove's synced phases)."""
+    from halo2_tpu_torch.plonk import keygen_pk, keygen_vk
+
+    walls = {}
+    t0 = time.perf_counter()
+    vk = keygen_vk(params, circuit.without_witnesses())
+    pk = keygen_pk(params, vk, circuit.without_witnesses())
+    torch.cuda.synchronize()
+    walls["keygen"] = time.perf_counter() - t0
+    for run in ("prove_cold", "prove"):
+        profiling.report(reset=True)
+        t0 = time.perf_counter()
+        proof = prove(pk)
+        torch.cuda.synchronize()
+        walls[run] = time.perf_counter() - t0
+    return vk, proof, walls, profiling.report(reset=True)
+
+
+def phase_pins(torch, dev) -> None:
+    """The tests/plonk_api.rs proofs (two instances, k=5) on the card must
+    equal the JAX package's pins; verify accepts each."""
+    from halo2_tpu_torch.circuit import Value
+    from halo2_tpu_torch.curves.spec import BN254_G1, PALLAS
+    from halo2_tpu_torch.plonk import create_proof, keygen_pk, keygen_vk, verify_proof
+    from halo2_tpu_torch.poly import multiopen_gwc, multiopen_ipa, multiopen_shplonk
+    from halo2_tpu_torch.poly.ipa import IPASingleStrategy, ParamsIPA
+    from halo2_tpu_torch.poly.kzg import ParamsKZG
+    from halo2_tpu_torch.transcript import Blake2bTranscript
+    from halo2_tpu_torch.utils.rng import FieldRng
+    from torch_circuits import StandardPlonkCircuit, plonk_api_common
+
+    kzg = ParamsKZG.setup_host(5, seed=b"plonk-api", device=dev)
+    ipa = ParamsIPA.setup(5, seed=b"plonk-api-ipa", device=dev)
+    schemes = (
+        ("gwc", kzg, BN254_G1, multiopen_gwc.gwc_create_proof, multiopen_gwc.gwc_verify_proof,
+         b"gwc-rng", {}),
+        ("shplonk", kzg, BN254_G1, multiopen_shplonk.shplonk_create_proof,
+         multiopen_shplonk.shplonk_verify_proof, b"shplonk-rng", {}),
+        ("ipa", ipa, PALLAS, multiopen_ipa.ipa_create_proof, multiopen_ipa.ipa_verify_proof,
+         b"ipa-rng", {"query_instance": True}),
+    )
+    for name, params, curve, create, verify, seed, opts in schemes:
+        t0 = time.perf_counter()
+        with open(os.path.join(HERE, "tests", "data", f"plonk_api_{name}_k5.hex")) as f:
+            expected = bytes.fromhex(f.read().strip())  # a missing pin fails: never re-pinned
+        spec = curve.scalar
+        a, inst, table = plonk_api_common(spec)
+        empty = StandardPlonkCircuit(Value.unknown(), table)
+        vk = keygen_vk(params, empty)
+        pk = keygen_pk(params, vk, empty)
+        circuit = StandardPlonkCircuit(Value.known(a), table)
+        instances = [[[inst]], [[inst]]]
+        proof = create_proof(params, pk, [circuit, circuit], instances, FieldRng(spec, seed),
+                             Blake2bTranscript(curve), create, **opts)
+        if proof != expected:
+            raise AssertionError(f"plonk_api {name} k=5 proof differs from its pin")
+        strategy = IPASingleStrategy(params) if name == "ipa" else None
+        if verify_proof(params, vk, instances, Blake2bTranscript(curve, proof), verify,
+                        strategy=strategy, **opts) is not True:
+            raise AssertionError(f"plonk_api {name} k=5 proof rejected")
+        log(f"[10] plonk_api {name} k=5 (two instances, lookup) == pinned bytes "
+            f"({len(proof)} B); verify accepts; {time.perf_counter() - t0:.2f} s")
+
+
+def phase_lookup(torch, profiling, params, dev) -> None:
+    """LookupRangeCircuit at k=14 on BN254 through SHPLONK, the real pairing."""
+    from halo2_tpu_torch.curves.spec import BN254_G1
+    from halo2_tpu_torch.plonk import create_proof, verify_proof
+    from halo2_tpu_torch.poly import multiopen_shplonk as shplonk
+    from halo2_tpu_torch.transcript import Blake2bTranscript
+    from halo2_tpu_torch.utils.rng import FieldRng
+    from torch_circuits import LookupRangeCircuit
+
+    assert params.s is None  # verify runs the real pairing
+    spec = BN254_G1.scalar
+    circuit = LookupRangeCircuit(params.k)
+    vk, proof, walls, phases = keygen_and_prove(torch, profiling, params, circuit, lambda pk: (
+        create_proof(params, pk, [circuit], [[]], FieldRng(spec, b"lookup-range-rng"),
+                     Blake2bTranscript(BN254_G1), shplonk.shplonk_create_proof)))
+
+    def verify(pr):
+        return verify_proof(params, vk, [[]], Blake2bTranscript(BN254_G1, pr),
+                            shplonk.shplonk_verify_proof)
+
+    t0 = time.perf_counter()
+    ok = verify(proof)
+    walls["verify"] = time.perf_counter() - t0
+    if ok is not True:
+        raise AssertionError(f"k={params.k} lookup proof rejected")
+    if not rejects_flipped(verify, proof, len(proof) // 2):
+        raise AssertionError(f"k={params.k} lookup proof with a flipped byte accepted")
+    log(f"[10] k={params.k} LookupRangeCircuit (SHPLONK): proof {len(proof)} B accepted "
+        f"through the real pairing; flipped byte rejected")
+    log_walls("[10]", walls, phases)
+
+
+def phase_ipa(torch, profiling, dev, k: int = 14) -> None:
+    """benches/plonk.rs: BenchPlonkCircuit at k=14 over ParamsIPA<EqAffine>."""
+    from halo2_tpu_torch.circuit import Value
+    from halo2_tpu_torch.curves.spec import VESTA
+    from halo2_tpu_torch.plonk import create_proof, verify_proof
+    from halo2_tpu_torch.plonk.batch import BatchVerifier
+    from halo2_tpu_torch.poly.ipa import IPASingleStrategy, ParamsIPA
+    from halo2_tpu_torch.poly.multiopen_ipa import ipa_create_proof, ipa_verify_proof
+    from halo2_tpu_torch.transcript import Blake2bTranscript
+    from halo2_tpu_torch.utils.rng import FieldRng
+    from torch_circuits import BenchPlonkCircuit
+
+    spec = VESTA.scalar
+    profiling.report(reset=True)
+    t0 = time.perf_counter()
+    params = ParamsIPA.setup(k, VESTA, device=dev)  # the reference's "Halo2-Parameters"
+    torch.cuda.synchronize()
+    srs = {name: secs for name, _, secs in profiling.report(reset=True)}
+    log(f"[11] k={k} SSWU SRS on the host {srs['ipa setup: SRS points (host)']:.2f} s")
+    log(f"[11] k={k} g_to_lagrange on the card {srs['ipa setup: g_to_lagrange']:.2f} s; "
+        f"ParamsIPA.setup {time.perf_counter() - t0:.2f} s")
+    circuit = BenchPlonkCircuit(k, Value.known(2))
+    vk, proof, walls, phases = keygen_and_prove(torch, profiling, params, circuit, lambda pk: (
+        create_proof(params, pk, [circuit], [[]], FieldRng(spec, b"bench-ipa-rng"),
+                     Blake2bTranscript(VESTA), ipa_create_proof, query_instance=True)))
+
+    def verify(pr):
+        return verify_proof(params, vk, [[]], Blake2bTranscript(VESTA, pr), ipa_verify_proof,
+                            query_instance=True, strategy=IPASingleStrategy(params))
+
+    t0 = time.perf_counter()
+    ok = verify(proof)
+    walls["verify"] = time.perf_counter() - t0
+    if ok is not True:
+        raise AssertionError(f"k={k} IPA proof rejected")
+    if not rejects_flipped(verify, proof, len(proof) // 2):
+        raise AssertionError(f"k={k} IPA proof with a flipped byte accepted")
+    t0 = time.perf_counter()
+    for tamper in (False, True):
+        second = bytearray(proof)
+        second[-1] ^= int(tamper)  # the final IPA fold scalar
+        batch = BatchVerifier()
+        batch.add_proof([[]], proof)
+        batch.add_proof([[]], bytes(second))
+        if batch.finalize(params, vk) is tamper:
+            raise AssertionError(f"k={k} BatchVerifier got it wrong (tampered: {tamper})")
+    walls["batch_verify_x2"] = time.perf_counter() - t0
+    log(f"[11] k={k} BenchPlonkCircuit (IPA, Vesta): proof {len(proof)} B accepted "
+        f"(IPASingleStrategy); flipped byte rejected; BatchVerifier accepts two good proofs "
+        f"and rejects a tampered one")
+    log_walls("[11]", walls, phases)
+
+
 def main() -> None:
     import torch
 
@@ -311,10 +514,10 @@ def main() -> None:
     from halo2_tpu_torch.bench import roofline
     from halo2_tpu_torch.curves import ec_kernels as ec
     from halo2_tpu_torch.curves import point as point_mod
-    from halo2_tpu_torch.curves.spec import BN254_G1
+    from halo2_tpu_torch.curves.spec import BN254_G1, PALLAS, VESTA
     from halo2_tpu_torch.fields import limb
     from halo2_tpu_torch.fields import mont_mul as mont_mul_mod
-    from halo2_tpu_torch.fields.spec import BN254_FQ, BN254_FR
+    from halo2_tpu_torch.fields.spec import BN254_FQ, BN254_FR, PASTA_FP, PASTA_FQ
 
     # ---- 2: build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -383,46 +586,25 @@ def main() -> None:
         "int_muladd": ic.int_muladd_chain, "int_addmask": ic.int_addmask_chain,
     }
     os.environ["HALO2_TPU_PROFILE"] = "1"
-    profiling.report(reset=True)
-    for fn in counted.values():
-        fn.launches = 0
-    walls = {}
+    start_counting(torch, counted)
+    vk, proof, walls, phases = keygen_and_prove(torch, profiling, params, bench, lambda pk: (
+        create_proof(params, pk, [bench], [[]], FieldRng(spec, b"bench-prove-rng"),
+                     Blake2bTranscript(BN254_G1), gwc_create_proof)))
+
+    def verify(pr):
+        return verify_proof(params, vk, [[]], Blake2bTranscript(BN254_G1, pr), gwc_verify_proof)
+
     t0 = time.perf_counter()
-    vk = keygen_vk(params, bench.without_witnesses())
-    pk = keygen_pk(params, vk, bench.without_witnesses())
-    torch.cuda.synchronize()
-    walls["keygen"] = time.perf_counter() - t0
-    for run in ("prove_cold", "prove"):
-        profiling.report(reset=True)
-        t0 = time.perf_counter()
-        proof = create_proof(
-            params, pk, [bench], [[]], FieldRng(spec, b"bench-prove-rng"),
-            Blake2bTranscript(BN254_G1), gwc_create_proof,
-        )
-        torch.cuda.synchronize()
-        walls[run] = time.perf_counter() - t0
-    phases = profiling.report(reset=True)
-    t0 = time.perf_counter()
-    ok = verify_proof(params, vk, [[]], Blake2bTranscript(BN254_G1, proof), gwc_verify_proof)
+    ok = verify(proof)
     walls["verify"] = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counted.items()}
-    if not ok:
-        raise AssertionError("k=14 proof rejected")
-    bad = bytearray(proof)
-    bad[len(bad) // 2] ^= 1
-    if verify_proof(params, vk, [[]], Blake2bTranscript(BN254_G1, bytes(bad)), gwc_verify_proof):
-        raise AssertionError("k=14 proof with a flipped byte accepted")
+    launches = read_counts(torch, counted, "[6] keygen + 2 proves + verify:")
+    if ok is not True:
+        raise AssertionError(f"k={k} proof rejected")
+    if not rejects_flipped(verify, proof, len(proof) // 2):
+        raise AssertionError(f"k={k} proof with a flipped byte accepted")
     log(f"[6] k={k} BenchPlonkCircuit: proof {len(proof)} B accepted through the real "
         f"pairing; flipped byte rejected")
-    log("[6] walls (s): " + " ".join(f"{k_}={v:.3f}" for k_, v in walls.items()))
-    log(f"[6] warm prove phases (synced), {sum(t for _, _, t in phases):.3f} s covered:")
-    for name, calls, secs in phases:
-        log(f"      {secs:8.3f} s  {calls:3d}x  {name}")
-    log(f"[6] launches during keygen + 2 proves + verify: {launches}")
-    for name in ("mont_mul", "ec_add", "ec_double"):
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-    log(f"[6] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log_walls("[6]", walls, phases)
 
     # ---- 7: K4 against its plain version and K1 ------------------------------
     k4 = {spec.name: phase_k4(torch, limb, mont_mul_mod, spec, rs, dev)
@@ -447,16 +629,55 @@ def main() -> None:
     log(f"[8] SASS: K1 {mix['imad']} IMAD-class + {mix['other']} other, as the model says; "
         + "; ".join(f"{k} {v}" for k, v in roof["sass"].items() if k != "mont_mul"))
 
+    # ---- 9: the kernels on the Pasta moduli; the device KZG setup ------------
+    pasta_k1 = {s.name: phase_k1(torch, limb, mont_mul_mod, s, rs, dev, "[9]")
+                for s in (PASTA_FP, PASTA_FQ)}
+    pasta_ec = {c.name: phase_ec(torch, point_mod, ec, c, rs, dev, "[9]") for c in (PALLAS, VESTA)}
+    t0 = time.perf_counter()
+    dev_params = ParamsKZG.setup(k, seed=b"bench-prove", device=dev)
+    torch.cuda.synchronize()
+    dev_setup_s = time.perf_counter() - t0
+    for name in ("g", "g_lagrange"):
+        ours, theirs = getattr(dev_params, name), getattr(params, name)
+        if (point_mod.to_affine_ints(BN254_G1, ours) != point_mod.to_affine_ints(BN254_G1, theirs)
+                or not all(torch.equal(a, b) for a, b in zip(ours, theirs))):
+            raise AssertionError(f"k={k} device ParamsKZG.setup {name} differs from setup_host")
+    if dev_params.s_g2 != params.s_g2:
+        raise AssertionError(f"k={k} device ParamsKZG.setup s_g2 differs from setup_host")
+    log(f"[9] k={k} ParamsKZG.setup on the card == setup_host: affine g and g_lagrange, limbs "
+        f"too; device {dev_setup_s:.2f} s, host {setup_s:.2f} s (phase 6)")
+    del dev_params
+
+    # ---- 10: the pins; lookups + SHPLONK at k=14 -------------------------------
+    start_counting(torch, counted)
+    phase_pins(torch, dev)
+    phase_lookup(torch, profiling, params, dev)
+    launches10 = read_counts(torch, counted, "[10]")
+
+    # ---- 11: IPA at k=14 ---------------------------------------------------------
+    start_counting(torch, counted)
+    phase_ipa(torch, profiling, dev)
+    launches11 = read_counts(torch, counted, "[11]")
+
+    def main_path(name):
+        """A prove-path kernel's launches in phases 6, 10 and 11."""
+        by_phase = {"6": launches[name], "10": launches10[name], "11": launches11[name]}
+        return {"launches": sum(by_phase.values()), "launches_by_phase": by_phase}
+
+    def with_pasta(bn254, pasta):
+        return {**bn254, "max_abs_err": max(r["max_abs_err"] for r in [bn254, *pasta.values()]),
+                "pasta": pasta}
+
     kernels = [
         {"name": "mont_mul", "route": "cuda", "source": "halo2_tpu_torch/csrc/mont_mul.cu",
-         "replaces": "halo2_tpu/fields/pallas_kernels.py:129",
-         "launches": launches["mont_mul"], **k1[BN254_FR.name]},
+         "replaces": "halo2_tpu/fields/pallas_kernels.py:129", **main_path("mont_mul"),
+         **with_pasta(k1[BN254_FR.name], pasta_k1)},
         {"name": "ec_add", "route": "cuda", "source": "halo2_tpu_torch/csrc/ec.cu",
-         "replaces": "halo2_tpu/curves/pallas_ec.py:161",
-         "launches": launches["ec_add"], **ec_res["ec_add"]},
+         "replaces": "halo2_tpu/curves/pallas_ec.py:161", **main_path("ec_add"),
+         **with_pasta(ec_res["ec_add"], {c: r["ec_add"] for c, r in pasta_ec.items()})},
         {"name": "ec_double", "route": "cuda", "source": "halo2_tpu_torch/csrc/ec.cu",
-         "replaces": "halo2_tpu/curves/pallas_ec.py:181",
-         "launches": launches["ec_double"], **ec_res["ec_double"]},
+         "replaces": "halo2_tpu/curves/pallas_ec.py:181", **main_path("ec_double"),
+         **with_pasta(ec_res["ec_double"], {c: r["ec_double"] for c, r in pasta_ec.items()})},
         {"name": "mont_mul_tiled", "route": "cuda",
          "source": "halo2_tpu_torch/csrc/mont_mul_tiled.cu",
          "replaces": "halo2_tpu/fields/pallas_kernels.py:80",

@@ -2,7 +2,8 @@
 
 Port of the JAX package's ``ops/arith.py`` (replacements for the reference
 arithmetic.rs helpers):
-- eval_polynomial (Horner loop)   -> batched power-table dot + tree reduce
+- eval_polynomial (Horner loop)   -> power-table dot + tree reduce, one
+                                     point or a batch of them
 - kate_division (synthetic div.)  -> suffix-scan closed form
 - lagrange_interpolate            -> host ints (tiny inputs only)
 """
@@ -34,6 +35,13 @@ def _tree_sum(spec: FieldSpec, a):
 def reduce_add(spec: FieldSpec, a):
     """Tree-sum a (16, n) limb tensor over axis 1 -> (16,)."""
     return _tree_sum(spec, a)
+
+
+def eval_polynomial(spec: FieldSpec, coeffs, x: int):
+    """Evaluate a (16, n) coefficient-form poly at canonical host scalar x ->
+    (16,) Montgomery limbs: power table, one product, tree sum."""
+    xpow = ntt_ops.power_table(spec, x, coeffs.shape[1], coeffs.device)
+    return reduce_add(spec, limb.fmul(spec, coeffs, xpow))
 
 
 def eval_polynomials_batched(spec: FieldSpec, coeffs, x_mont):

@@ -24,6 +24,15 @@ from ..fields import limb
 from ..fields.spec import NLIMBS, FieldSpec
 
 
+def bitrev_indices(k: int, device=None) -> torch.Tensor:
+    """The bit-reversal permutation of 0 .. 2^k - 1 (int64 index tensor)."""
+    idx = torch.arange(1 << k, device=device)
+    rev = torch.zeros_like(idx)
+    for b in range(k):
+        rev |= ((idx >> b) & 1) << (k - 1 - b)
+    return rev
+
+
 def power_table(spec: FieldSpec, base: int, n: int, device=None) -> torch.Tensor:
     """(16, n) Montgomery table of [1, base, base^2, ..., base^(n-1)].
 

@@ -7,8 +7,10 @@ omega/delta factors as precomputed power tables.  ``torch.roll`` shifts
 toward higher indices for a positive shift, as ``jnp.roll`` does, so the
 reference's shift signs carry over unchanged.
 
-Lookups are not in this slice of the port (ROADMAP §1): ``create_proof``
-refuses circuits that have them before it gets here.
+The lookup terms fold in the reference's order (evaluation.rs:446-519): for
+each lookup, l_0 (1 - z), l_last (z^2 - z), the product step, l_0 (a' - s')
+and (a' - s')(a' - a'(omega^-1 X)), each on the active rows where the
+reference restricts it.
 """
 
 from __future__ import annotations
@@ -117,6 +119,25 @@ def evaluate_expr(expr: Expression, ctx: EvalContext) -> torch.Tensor:
     raise TypeError(f"unknown expression {type(expr)}")
 
 
+def evaluate_on_lagrange(spec: FieldSpec, expr: Expression, n: int, fixed, advice, instance,
+                         challenges, device) -> torch.Tensor:
+    """Evaluate an expression over the n-row Lagrange basis (the lookups'
+    compressed columns; the reference's evaluation.rs ``evaluate``).  The
+    result broadcasts to (16, n)."""
+    return evaluate_expr(expr, EvalContext(spec, n, 1, fixed, advice, instance, challenges, device))
+
+
+def compress_expressions(spec: FieldSpec, exprs, theta, evaluate):
+    """The lookup's theta-fold of its expressions' values,
+    (..(e_0 theta + e_1) theta + ..) + e_{m-1}; ``evaluate`` maps an
+    expression to its (16, ...) values."""
+    acc = None
+    for e in exprs:
+        ev = evaluate(e)
+        acc = ev if acc is None else limb.fadd(spec, limb.fmul(spec, acc, theta), ev)
+    return acc
+
+
 class Evaluator:
     """Holds the constraint system; evaluates h over the extended domain.
 
@@ -141,6 +162,8 @@ class Evaluator:
         y: torch.Tensor,
         beta: torch.Tensor,
         gamma: torch.Tensor,
+        theta: torch.Tensor,
+        lookups: List[List],  # per instance, list of LookupCommitted
         permutations: List,  # per instance, permutation Committed
     ) -> Poly:
         cs = self.cs
@@ -157,6 +180,7 @@ class Evaluator:
         yb = y.reshape(-1, 1)
         betab = beta.reshape(-1, 1)
         gammab = gamma.reshape(-1, 1)
+        thetab = theta.reshape(-1, 1)
 
         def fold(acc, term):
             return limb.fadd(spec, limb.fmul(spec, acc, yb), term)
@@ -165,6 +189,10 @@ class Evaluator:
         streaming = size >= self.stream_threshold
 
         for inst_idx in range(len(advice_polys)):
+            lookup_polys = [
+                p for lk in lookups[inst_idx]
+                for p in (lk.product_poly, lk.permuted_input_poly, lk.permuted_table_poly)
+            ]
             if streaming:
                 cache: "OrderedDict" = OrderedDict()
 
@@ -184,10 +212,15 @@ class Evaluator:
 
                 advice = provider(advice_polys[inst_idx], "advice")
                 instance = provider(instance_polys[inst_idx], "instance")
+                lookup_coset = provider(lookup_polys, "lookup")
                 max_rolls = 2
             else:
                 advice = [domain.coeff_to_extended(p).values for p in advice_polys[inst_idx]]
                 instance = [domain.coeff_to_extended(p).values for p in instance_polys[inst_idx]]
+
+                def lookup_coset(index, polys=lookup_polys):
+                    return domain.coeff_to_extended(polys[index]).values
+
                 max_rolls = None
             ctx = EvalContext(
                 spec, size, rot_scale, fixed, advice, instance, challenges, dev,
@@ -266,5 +299,51 @@ class Evaluator:
                     values = fold(
                         values, limb.fmul(spec, limb.fsub(spec, left, right), l_active)
                     )
+
+            # Lookup constraints (evaluation.rs:446-519); the cosets take the
+            # advice columns' path (the LRU when streaming)
+            for lk_idx, arg in enumerate(cs.lookups):
+                product_coset, input_coset, table_coset = (
+                    lookup_coset(3 * lk_idx + j) for j in range(3)
+                )
+
+                def compress(exprs):
+                    return compress_expressions(spec, exprs, thetab, lambda e: evaluate_expr(e, ctx))
+
+                table_value = limb.fmul(
+                    spec,
+                    limb.fadd(spec, compress(arg.input_expressions), betab),
+                    limb.fadd(spec, compress(arg.table_expressions), gammab),
+                )
+                # omega X reads row i + 1 (roll left), omega^-1 X row i - 1
+                z_next = torch.roll(product_coset, -rot_scale, dims=1)
+                input_prev = torch.roll(input_coset, rot_scale, dims=1)
+                a_minus_s = limb.fsub(spec, input_coset, table_coset)
+
+                values = fold(values, limb.fmul(spec, limb.fsub(spec, one, product_coset), l0))
+                values = fold(
+                    values,
+                    limb.fmul(
+                        spec,
+                        limb.fsub(spec, limb.fmul(spec, product_coset, product_coset), product_coset),
+                        l_last,
+                    ),
+                )
+                left = limb.fmul(
+                    spec,
+                    limb.fmul(spec, z_next, limb.fadd(spec, input_coset, betab)),
+                    limb.fadd(spec, table_coset, gammab),
+                )
+                right = limb.fmul(spec, product_coset, table_value)
+                values = fold(values, limb.fmul(spec, limb.fsub(spec, left, right), l_active))
+                values = fold(values, limb.fmul(spec, a_minus_s, l0))
+                values = fold(
+                    values,
+                    limb.fmul(
+                        spec,
+                        limb.fmul(spec, a_minus_s, limb.fsub(spec, input_coset, input_prev)),
+                        l_active,
+                    ),
+                )
 
         return Poly(values, EXTENDED)

@@ -376,9 +376,12 @@ def keygen_vk(params, circuit, spec: FieldSpec | None = None) -> VerifyingKey:
     spec = spec or params.curve.scalar
     synthesis = _run_keygen_synthesis(params, spec, circuit)
     domain, cs, assembly, fixed, sigmas = synthesis
-    # every fixed and sigma column in ONE batched MSM (Blind::default(),
-    # keygen.rs:247-250; KZG ignores it)
-    commitments = to_affine_ints(params.curve, params.commit_lagrange_many(fixed + sigmas))
+    # every fixed and sigma column in ONE batched MSM, each with
+    # Blind::default() = 1 (keygen.rs:247-250; KZG ignores it, IPA adds w)
+    columns = fixed + sigmas
+    commitments = to_affine_ints(
+        params.curve, params.commit_lagrange_many(columns, [1] * len(columns))
+    )
     return VerifyingKey(
         domain, cs, commitments[: len(fixed)], commitments[len(fixed) :], params.curve, synthesis
     )

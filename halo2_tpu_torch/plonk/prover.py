@@ -4,12 +4,12 @@ Port of the JAX package's ``plonk/prover.py`` (the reference
 plonk/prover.rs).  The transcript interaction order below IS the proof
 format and mirrors the reference exactly.  Device work: witness
 materialization, MSM commitments, NTTs, the grand-product scan and the
-quotient evaluation.  Host work: transcript hashing and challenges.
+quotient evaluation.  Host work: transcript hashing, challenges and the
+lookup multiset matching.
 
-This slice of the port proves circuits without lookups or shuffles; one that
-has them raises ``NotImplementedError`` (ROADMAP §1).  Commitments that the
-transcript writes back to back (the advice columns of a phase, the
-permutation products, the quotient pieces) go through one batched MSM each;
+Commitments that the transcript writes back to back (the advice columns of a
+phase, the lookups' permuted columns, the permutation and lookup products,
+the quotient pieces, the instance columns) go through one batched MSM each;
 the randomness is drawn in the reference's order, so the bytes are unchanged.
 """
 
@@ -26,11 +26,12 @@ from ..curves.point import to_affine_ints
 from ..fields import limb
 from ..fields.spec import NLIMBS, FieldSpec
 from ..ops import arith
-from ..plonk.error import InstanceTooLarge, NotEnoughRowsAvailable
+from ..plonk.error import ConstraintSystemFailure, InstanceTooLarge, NotEnoughRowsAvailable
 from ..poly.domain import EvaluationDomain
 from ..poly.polynomial import COEFF, LAGRANGE, Poly, Rotation
 from ..utils import profiling
 from .circuit import ConstraintSystem
+from .evaluation import compress_expressions, evaluate_on_lagrange
 from .keygen import ProvingKey, batch_invert_assigned
 
 
@@ -94,6 +95,16 @@ class PermutationCommittedSet:
 @dataclasses.dataclass
 class PermutationCommitted:
     sets: List[PermutationCommittedSet]
+
+
+@dataclasses.dataclass
+class LookupCommitted:
+    permuted_input_poly: Poly
+    permuted_input_blind: int
+    permuted_table_poly: Poly
+    permuted_table_blind: int
+    product_poly: Poly
+    product_blind: int
 
 
 @dataclasses.dataclass
@@ -195,8 +206,13 @@ def _permutation_commit(
         zs.append(z)
         blinds.append(rng())  # commitment blind (KZG ignores the value)
 
-    # the set commitments are written back to back: one batched MSM
-    _write_points(params, transcript, params.commit_lagrange_many([Poly(z, LAGRANGE) for z in zs]))
+    # the set commitments are written back to back: one batched MSM (none
+    # for a circuit without permutation columns)
+    if zs:
+        _write_points(
+            params, transcript,
+            params.commit_lagrange_many([Poly(z, LAGRANGE) for z in zs], blinds),
+        )
     sets = []
     for z, z_blind in zip(zs, blinds):
         zc = domain.lagrange_to_coeff(Poly(z, LAGRANGE))
@@ -206,16 +222,127 @@ def _permutation_commit(
 
 
 # ---------------------------------------------------------------------------
+# lookup commit (lookup/prover.rs:64-305, permute at :391-475)
+# ---------------------------------------------------------------------------
+
+
+def _permute_expression_pair(rng, input_vals: List[int], table_vals: List[int], n: int, bf: int):
+    """Host multiset matching, as lookup/prover.rs:391-475: the sorted
+    inputs, each new value's first row matched by a table row, the repeats'
+    rows filled by the leftover table values; then bf + 1 random blinding
+    rows for each column, input first."""
+    usable = n - (bf + 1)
+    permuted_input = sorted(input_vals[:usable])
+    leftover: Dict[int, int] = {}
+    for v in table_vals[:usable]:
+        leftover[v] = leftover.get(v, 0) + 1
+    permuted_table = [0] * usable
+    repeated_rows = []
+    for row, v in enumerate(permuted_input):
+        if row == 0 or v != permuted_input[row - 1]:
+            permuted_table[row] = v
+            if leftover.get(v, 0) == 0:
+                raise ConstraintSystemFailure("lookup input not in table")
+            leftover[v] -= 1
+            if leftover[v] == 0:
+                del leftover[v]
+        else:
+            repeated_rows.append(row)
+    for v in sorted(leftover):
+        for _ in range(leftover[v]):
+            permuted_table[repeated_rows.pop()] = v
+    assert not repeated_rows
+    permuted_input.extend(rng() for _ in range(bf + 1))
+    permuted_table.extend(rng() for _ in range(bf + 1))
+    return permuted_input, permuted_table
+
+
+@profiling.profiled("lookup: compress + permute")
+def _lookup_permute(arg, pk, theta, advice_values, fixed_values, instance_values,
+                    challenges_dev, rng) -> dict:
+    """One lookup's compressed columns and their permutation; draws the
+    permutation's blinding rows, then the input and the table commitment
+    blinds, in the reference's order."""
+    domain = pk.vk.domain
+    spec = domain.spec
+    n = domain.n
+    bf = pk.vk.cs.blinding_factors()
+
+    def evaluate(e):
+        ev = evaluate_on_lagrange(
+            spec, e, n, fixed_values, advice_values, instance_values, challenges_dev, domain.device
+        )
+        return ev.expand(NLIMBS, n)
+
+    comp_input = compress_expressions(spec, arg.input_expressions, theta, evaluate)
+    comp_table = compress_expressions(spec, arg.table_expressions, theta, evaluate)
+    ints = limb.to_ints(spec, torch.stack([comp_input, comp_table], dim=1))  # one pull
+    pi, pt = _permute_expression_pair(rng, ints[:n], ints[n:], n, bf)
+    return {
+        "comp_input": comp_input,
+        "comp_table": comp_table,
+        "perm_input": limb.from_ints(spec, pi, domain.device),
+        "perm_table": limb.from_ints(spec, pt, domain.device),
+        "input_blind": rng(),
+        "table_blind": rng(),  # commit_values samples the blind before committing
+    }
+
+
+@profiling.profiled("lookup: grand product")
+def _lookup_product(permuted, pk, beta: int, gamma: int, rng):
+    """The lookup's grand product z in Lagrange form, its blinding rows and
+    then its commitment blind drawn from ``rng``."""
+    domain = pk.vk.domain
+    spec = domain.spec
+    n = domain.n
+    dev = domain.device
+    bf = pk.vk.cs.blinding_factors()
+    beta_b = limb.from_int(spec, beta, dev).reshape(NLIMBS, 1)
+    gamma_b = limb.from_int(spec, gamma, dev).reshape(NLIMBS, 1)
+
+    denom = limb.fmul(
+        spec,
+        limb.fadd(spec, beta_b, permuted["perm_input"]),
+        limb.fadd(spec, gamma_b, permuted["perm_table"]),
+    )
+    prod = limb.finv(spec, denom)
+    prod = limb.fmul(spec, prod, limb.fadd(spec, permuted["comp_input"], beta_b))
+    prod = limb.fmul(spec, prod, limb.fadd(spec, permuted["comp_table"], gamma_b))
+
+    z = _prefix_product_with_start(spec, prod, limb.from_int(spec, 1, dev))
+    z = _set_rows(z, n - bf, limb.from_ints(spec, [rng() for _ in range(bf)], dev))
+    return z, rng()
+
+
+def _lookup_committed(domain, permuted, z, product_blind) -> LookupCommitted:
+    def coeff(values):
+        return domain.lagrange_to_coeff(Poly(values, LAGRANGE))
+
+    return LookupCommitted(
+        permuted_input_poly=coeff(permuted["perm_input"]),
+        permuted_input_blind=permuted["input_blind"],
+        permuted_table_poly=coeff(permuted["perm_table"]),
+        permuted_table_blind=permuted["table_blind"],
+        product_poly=coeff(z),
+        product_blind=product_blind,
+    )
+
+
+# ---------------------------------------------------------------------------
 # main prover
 # ---------------------------------------------------------------------------
 
 
-def create_proof(params, pk: ProvingKey, circuits, instances, rng, transcript, multiopen):
+def create_proof(params, pk: ProvingKey, circuits, instances, rng, transcript, multiopen,
+                 query_instance: bool = False):
     """instances: list (per circuit) of list (per instance column) of int lists.
 
     ``multiopen`` is a callable (params, rng, transcript, queries) -> None
-    (``poly.multiopen_gwc.gwc_create_proof``).  Instance values are hashed
-    into the transcript as common scalars (the KZG scheme, prover.rs:79-132).
+    (the GWC, SHPLONK and IPA provers of ``poly/``).  ``query_instance``
+    selects the scheme's instance handling (prover.rs:79-132): False (KZG)
+    hashes the instance values as common scalars; True (IPA) commits each
+    instance column with Blind::default() = 1, hashes the commitment, writes
+    the instance evaluations and opens the instance polynomials.
     """
     domain: EvaluationDomain = pk.vk.domain
     spec = domain.spec
@@ -223,8 +350,6 @@ def create_proof(params, pk: ProvingKey, circuits, instances, rng, transcript, m
     n = domain.n
     p = spec.p
     dev = params.device
-    if cs.lookups:  # the frontend has no shuffle argument to check for
-        raise NotImplementedError("lookups and shuffles are not ported yet (ROADMAP §1)")
 
     pk.vk.hash_into(transcript)
 
@@ -238,12 +363,18 @@ def create_proof(params, pk: ProvingKey, circuits, instances, rng, transcript, m
         for col_values in inst:
             if len(col_values) > usable:
                 raise InstanceTooLarge()
-            for v in col_values:
-                transcript.common_scalar(v % p)
+            if not query_instance:
+                for v in col_values:
+                    transcript.common_scalar(v % p)
             padded = list(col_values) + [0] * (n - len(col_values))
             lagr = Poly(limb.from_ints(spec, padded, dev), LAGRANGE)
             values.append(lagr.values)
             polys.append(domain.lagrange_to_coeff(lagr))
+        if query_instance and values:
+            # Blind::default() = 1; the columns' commitments are hashed back to back
+            pts = params.commit_lagrange_many([Poly(v, LAGRANGE) for v in values], [1] * len(values))
+            for aff in to_affine_ints(params.curve, pts):
+                transcript.common_point(aff)
         instance_singles.append({"values": values, "polys": polys})
 
     # --- phase loop: witness synthesis + advice commitments ----------------
@@ -279,7 +410,8 @@ def create_proof(params, pk: ProvingKey, circuits, instances, rng, transcript, m
                 if col_indices:
                     # all same-phase columns in ONE batched MSM
                     pts = params.commit_lagrange_many(
-                        [Poly(advice_values[c_idx][i], LAGRANGE) for i in col_indices]
+                        [Poly(advice_values[c_idx][i], LAGRANGE) for i in col_indices],
+                        [advice_blinds[c_idx][i] for i in col_indices],
                     )
                     _write_points(params, transcript, pts)
         for index, ch_phase in enumerate(cs.challenge_phase):
@@ -287,21 +419,56 @@ def create_proof(params, pk: ProvingKey, circuits, instances, rng, transcript, m
                 challenges[index] = transcript.squeeze_challenge()
 
     challenges_dev = [limb.from_int(spec, challenges[i], dev) for i in range(cs.num_challenges)]
+    fixed_values = [f.values for f in pk.fixed_values]
 
-    # --- theta (squeezed for the lookups; none in this slice) --------------
-    transcript.squeeze_challenge()
+    # --- theta; the lookups' permuted columns ------------------------------
+    # every permuted input and table commitment, of every circuit and lookup,
+    # is written back to back: one batched MSM, rng drawn in the reference's
+    # order (permutation rows, input blind, table blind, per lookup)
+    theta = transcript.squeeze_challenge()
+    theta_dev = limb.from_int(spec, theta, dev).reshape(NLIMBS, 1)
+    num_lookups = len(cs.lookups)
+    permuted = [  # circuit-major, as the transcript writes them
+        _lookup_permute(
+            arg, pk, theta_dev, advice_values[c_idx], fixed_values,
+            instance_singles[c_idx]["values"], challenges_dev, rng,
+        )
+        for c_idx in range(num_circuits)
+        for arg in cs.lookups
+    ]
+    if permuted:
+        with profiling.phase("lookup: permuted commits"):
+            polys, blinds = [], []
+            for perm in permuted:
+                polys += [Poly(perm["perm_input"], LAGRANGE), Poly(perm["perm_table"], LAGRANGE)]
+                blinds += [perm["input_blind"], perm["table_blind"]]
+            _write_points(params, transcript, params.commit_lagrange_many(polys, blinds))
 
-    # --- beta, gamma; permutation products ---------------------------------
+    # --- beta, gamma; permutation + lookup products ------------------------
     beta = transcript.squeeze_challenge()
     gamma = transcript.squeeze_challenge()
 
-    fixed_values = [f.values for f in pk.fixed_values]
     permutations = [
         _permutation_commit(
             params, pk, advice_values[c_idx], fixed_values,
             instance_singles[c_idx]["values"], beta, gamma, rng, transcript,
         )
         for c_idx in range(num_circuits)
+    ]
+
+    # the product commitments of every circuit and lookup are back to back too
+    products = [_lookup_product(perm, pk, beta, gamma, rng) for perm in permuted]
+    if products:
+        with profiling.phase("lookup: product commits"):
+            pts = params.commit_lagrange_many(
+                [Poly(z, LAGRANGE) for z, _ in products], [blind for _, blind in products]
+            )
+            _write_points(params, transcript, pts)
+    committed = [
+        _lookup_committed(domain, perm, z, blind) for perm, (z, blind) in zip(permuted, products)
+    ]
+    lookups_committed = [
+        committed[c_idx * num_lookups : (c_idx + 1) * num_lookups] for c_idx in range(num_circuits)
     ]
 
     # --- vanishing random poly --------------------------------------------
@@ -328,6 +495,8 @@ def create_proof(params, pk: ProvingKey, circuits, instances, rng, transcript, m
             limb.from_int(spec, y, dev),
             limb.from_int(spec, beta, dev),
             limb.from_int(spec, gamma, dev),
+            theta_dev,
+            lookups_committed,
             permutations,
         )
 
@@ -353,6 +522,12 @@ def create_proof(params, pk: ProvingKey, circuits, instances, rng, transcript, m
     def queue_eval(poly: Poly, point: int):
         eval_vals.append(poly.values)
         eval_pts.append(point)
+
+    if query_instance:
+        # prover.rs:521-545: instance evals at rotated points
+        for c_idx in range(num_circuits):
+            for column, at in cs.instance_queries:
+                queue_eval(instance_polys[c_idx][column.index], domain.rotate_omega(x, at))
 
     for c_idx in range(num_circuits):
         for column, at in cs.advice_queries:
@@ -382,12 +557,22 @@ def create_proof(params, pk: ProvingKey, circuits, instances, rng, transcript, m
     # permutations evaluate
     x_next = domain.rotate_omega(x, Rotation.next())
     x_last = domain.rotate_omega(x, Rotation(-(bf + 1)))
-    for committed in permutations:
-        for set_idx, pset in enumerate(committed.sets):
+    for perm in permutations:
+        for set_idx, pset in enumerate(perm.sets):
             queue_eval(pset.product_poly, x)
             queue_eval(pset.product_poly, x_next)
-            if set_idx < len(committed.sets) - 1:
+            if set_idx < len(perm.sets) - 1:
                 queue_eval(pset.product_poly, x_last)
+
+    # lookups evaluate (x, x_next, x_inv order per lookup/prover.rs:309-337)
+    x_inv = domain.rotate_omega(x, Rotation.prev())
+    for per_circ in lookups_committed:
+        for lk in per_circ:
+            queue_eval(lk.product_poly, x)
+            queue_eval(lk.product_poly, x_next)
+            queue_eval(lk.permuted_input_poly, x)
+            queue_eval(lk.permuted_input_poly, x_inv)
+            queue_eval(lk.permuted_table_poly, x)
 
     with profiling.phase("evaluations at x (one batched pass)"):
         stacked = torch.stack(eval_vals, dim=1)  # (16, m, n)
@@ -397,8 +582,15 @@ def create_proof(params, pk: ProvingKey, circuits, instances, rng, transcript, m
             transcript.write_scalar(v)
 
     # --- assemble multiopen queries (prover.rs:599-645) ----------------------
+    # the multiopen keys polynomials by object identity: every query of one
+    # polynomial hands over the same Poly
     queries: List[ProverQuery] = []
     for c_idx in range(num_circuits):
+        if query_instance:
+            for column, at in cs.instance_queries:
+                queries.append(ProverQuery(
+                    domain.rotate_omega(x, at), instance_polys[c_idx][column.index], 1
+                ))
         for column, at in cs.advice_queries:
             queries.append(
                 ProverQuery(
@@ -407,12 +599,18 @@ def create_proof(params, pk: ProvingKey, circuits, instances, rng, transcript, m
                     advice_blinds[c_idx][column.index],
                 )
             )
-        committed = permutations[c_idx]
-        for pset in committed.sets:
+        perm = permutations[c_idx]
+        for pset in perm.sets:
             queries.append(ProverQuery(x, pset.product_poly, pset.product_blind))
             queries.append(ProverQuery(x_next, pset.product_poly, pset.product_blind))
-        for pset in list(reversed(committed.sets))[1:]:
+        for pset in list(reversed(perm.sets))[1:]:
             queries.append(ProverQuery(x_last, pset.product_poly, pset.product_blind))
+        for lk in lookups_committed[c_idx]:
+            queries.append(ProverQuery(x, lk.product_poly, lk.product_blind))
+            queries.append(ProverQuery(x, lk.permuted_input_poly, lk.permuted_input_blind))
+            queries.append(ProverQuery(x, lk.permuted_table_poly, lk.permuted_table_blind))
+            queries.append(ProverQuery(x_inv, lk.permuted_input_poly, lk.permuted_input_blind))
+            queries.append(ProverQuery(x_next, lk.product_poly, lk.product_blind))
     for column, at in cs.fixed_queries:
         queries.append(ProverQuery(domain.rotate_omega(x, at), pk.fixed_polys[column.index], 1))
     for poly in pk.permutation.polys:

@@ -2,18 +2,49 @@
 
 Port of the JAX package's ``plonk/verifier.py`` (the reference
 plonk/verifier.rs).  All scalar work is host Python ints; the final check is
-the KZG two-channel pairing MSM.  Like the prover, this slice verifies
-circuits without lookups or shuffles (ROADMAP §1).
+the commitment scheme's: the KZG two-channel pairing MSM or the IPA MSM,
+decided through a strategy (kzg/strategy.rs, ipa/strategy.rs).
 """
 
 from __future__ import annotations
 
 from typing import List
 
-from ..plonk.error import InvalidInstances
+from ..curves.point import to_affine_ints
+from ..fields import limb
+from ..plonk.error import InstanceTooLarge, InvalidInstances
 from ..poly.multiopen_gwc import DualMSM, VerifierQuery
-from ..poly.polynomial import Rotation
+from ..poly.polynomial import LAGRANGE, Poly, Rotation
 from .keygen import VerifyingKey
+
+
+class KZGSingleStrategy:
+    """kzg/strategy.rs SingleStrategy: run the multiopen verifier on a fresh
+    DualMSM and decide at once through the pairing check."""
+
+    def __init__(self, params):
+        self.params = params
+
+    def process(self, f) -> bool:
+        return f(DualMSM(self.params)).check()
+
+
+class KZGAccumulatorStrategy:
+    """kzg/strategy.rs AccumulatorStrategy: accumulate many proofs into one
+    DualMSM with random scaling; one pairing check at ``finalize()``."""
+
+    def __init__(self, params, rng):
+        self.params = params
+        self.rng = rng
+        self.msm = DualMSM(params)
+
+    def process(self, f) -> "KZGAccumulatorStrategy":
+        self.msm.scale(self.rng())
+        self.msm = f(self.msm)
+        return self
+
+    def finalize(self) -> bool:
+        return self.msm.check()
 
 
 def _eval_expression(expr, p, fixed_evals, advice_evals, instance_evals, challenges):
@@ -33,33 +64,71 @@ def _eval_expression(expr, p, fixed_evals, advice_evals, instance_evals, challen
     )
 
 
-def verify_proof(params, vk: VerifyingKey, instances, transcript, multiopen_verify) -> bool:
+def _instance_commitments(params, cs, domain, instances):
+    """Each instance column committed with Blind::default() = 1 (the IPA
+    scheme, verifier.rs:48-91): every column of every proof in one batched
+    MSM."""
+    spec = domain.spec
+    n = domain.n
+    usable = n - (cs.blinding_factors() + 1)
+    polys = []
+    for inst in instances:
+        for col in inst:
+            if len(col) > usable:
+                raise InstanceTooLarge()
+            padded = [v % spec.p for v in col] + [0] * (n - len(col))
+            polys.append(Poly(limb.from_ints(spec, padded, params.device), LAGRANGE))
+    flat = (
+        to_affine_ints(params.curve, params.commit_lagrange_many(polys, [1] * len(polys)))
+        if polys else []
+    )
+    out = []
+    for inst in instances:
+        out.append(flat[: len(inst)])
+        flat = flat[len(inst):]
+    return out
+
+
+def verify_proof(params, vk: VerifyingKey, instances, transcript, multiopen_verify,
+                 query_instance: bool = False, strategy=None):
     """instances: list (per proof) of list (per instance column) of int lists.
 
     ``multiopen_verify(params, transcript, queries, msm)`` returns the
-    scheme's guard (``poly.multiopen_gwc.gwc_verify_proof``); the proof
-    verifies iff the guard's pairing check holds (the reference's KZG
-    SingleStrategy).  Instance values are hashed as common scalars and their
-    evaluations recomputed barycentrically (verifier.rs:177-215).
+    scheme's guard.  ``query_instance`` selects the scheme's instance
+    handling (verifier.rs:48-91,170-215): False (KZG) hashes the values as
+    common scalars and recomputes their evaluations barycentrically; True
+    (IPA) commits the instance columns, hashes the commitments and reads the
+    evaluations from the proof.  ``strategy`` has ``process(f)``: for KZG
+    ``f`` takes a DualMSM, for IPA an MSMIPA; the default is
+    :class:`KZGSingleStrategy`.  Returns what the strategy returns (True iff
+    the proof verifies, for the single strategies).
     """
     cs = vk.cs
     domain = vk.domain
     spec = domain.spec
     p = spec.p
     n = domain.n
-    if cs.lookups:
-        raise NotImplementedError("lookups and shuffles are not ported yet (ROADMAP §1)")
 
     for inst in instances:
         if len(inst) != cs.num_instance_columns:
             raise InvalidInstances()
     num_proofs = len(instances)
 
+    instance_commitments = (
+        _instance_commitments(params, cs, domain, instances) if query_instance else None
+    )
+
     vk.hash_into(transcript)
-    for inst in instances:
-        for col in inst:
-            for value in col:
-                transcript.common_scalar(value % p)
+
+    if query_instance:
+        for comms in instance_commitments:
+            for commitment in comms:
+                transcript.common_point(commitment)
+    else:
+        for inst in instances:
+            for col in inst:
+                for value in col:
+                    transcript.common_scalar(value % p)
 
     # advice commitments + phase challenges
     advice_commitments = [[None] * cs.num_advice_columns for _ in range(num_proofs)]
@@ -73,7 +142,18 @@ def verify_proof(params, vk: VerifyingKey, instances, transcript, multiopen_veri
             if ch_phase == phase:
                 challenges[idx] = transcript.squeeze_challenge()
 
-    transcript.squeeze_challenge()  # theta (lookups; none in this slice)
+    theta = transcript.squeeze_challenge()
+
+    lookups_permuted = [
+        [
+            {
+                "permuted_input_commitment": transcript.read_point(),
+                "permuted_table_commitment": transcript.read_point(),
+            }
+            for _ in cs.lookups
+        ]
+        for _ in range(num_proofs)
+    ]
 
     beta = transcript.squeeze_challenge()
     gamma = transcript.squeeze_challenge()
@@ -90,6 +170,11 @@ def verify_proof(params, vk: VerifyingKey, instances, transcript, multiopen_veri
         for _ in range(num_proofs)
     ]
 
+    lookups_committed = [
+        [{**lk, "product_commitment": transcript.read_point()} for lk in lookups_permuted[pr]]
+        for pr in range(num_proofs)
+    ]
+
     random_poly_commitment = transcript.read_point()
     y = transcript.squeeze_challenge()
     h_commitments = [transcript.read_point() for _ in range(domain.get_quotient_poly_degree())]
@@ -97,24 +182,30 @@ def verify_proof(params, vk: VerifyingKey, instances, transcript, multiopen_veri
     x = transcript.squeeze_challenge()
     xn = pow(x, n, p)
 
-    # barycentric inner product (verifier.rs:177-215)
-    min_rot, max_rot = 0, 0
-    for _, rot in cs.instance_queries:
-        min_rot = min(min_rot, rot.i)
-        max_rot = max(max_rot, rot.i)
-    max_instance_len = max((len(col) for inst in instances for col in inst), default=0)
-    l_i_s = domain.l_i_range(x, xn, range(-max_rot, max_instance_len + abs(min_rot)))
-    instance_evals = []
-    for inst in instances:
-        evals = []
-        for column, rot in cs.instance_queries:
-            col = inst[column.index]
-            offset = max_rot - rot.i
-            acc = 0
-            for v, li in zip(col, l_i_s[offset : offset + len(col)]):
-                acc = (acc + v * li) % p
-            evals.append(acc)
-        instance_evals.append(evals)
+    if query_instance:
+        # instance evals are read from the proof (verifier.rs:170-176)
+        instance_evals = [
+            [transcript.read_scalar() for _ in cs.instance_queries] for _ in range(num_proofs)
+        ]
+    else:
+        # barycentric inner product (verifier.rs:177-215)
+        min_rot, max_rot = 0, 0
+        for _, rot in cs.instance_queries:
+            min_rot = min(min_rot, rot.i)
+            max_rot = max(max_rot, rot.i)
+        max_instance_len = max((len(col) for inst in instances for col in inst), default=0)
+        l_i_s = domain.l_i_range(x, xn, range(-max_rot, max_instance_len + abs(min_rot)))
+        instance_evals = []
+        for inst in instances:
+            evals = []
+            for column, rot in cs.instance_queries:
+                col = inst[column.index]
+                offset = max_rot - rot.i
+                acc = 0
+                for v, li in zip(col, l_i_s[offset : offset + len(col)]):
+                    acc = (acc + v * li) % p
+                evals.append(acc)
+            instance_evals.append(evals)
 
     advice_evals = [
         [transcript.read_scalar() for _ in cs.advice_queries] for _ in range(num_proofs)
@@ -138,23 +229,41 @@ def verify_proof(params, vk: VerifyingKey, instances, transcript, multiopen_veri
             sets.append(ev)
         permutations_evaluated.append(sets)
 
+    lookups_evaluated = [
+        [
+            {
+                **lk,
+                "product_eval": transcript.read_scalar(),
+                "product_next_eval": transcript.read_scalar(),
+                "permuted_input_eval": transcript.read_scalar(),
+                "permuted_input_inv_eval": transcript.read_scalar(),
+                "permuted_table_eval": transcript.read_scalar(),
+            }
+            for lk in lookups_committed[pr]
+        ]
+        for pr in range(num_proofs)
+    ]
+
     # ---- recompute expected h(x) (verifier.rs:244-324) ----------------------
     l_evals = domain.l_i_range(x, xn, range(-(bf + 1), 1))
     assert len(l_evals) == 2 + bf
     l_last = l_evals[0]
     l_blind = sum(l_evals[1 : 1 + bf]) % p
     l_0 = l_evals[1 + bf]
+    active = (1 - (l_last + l_blind)) % p
 
     expressions: List[int] = []
     for pr in range(num_proofs):
         a_evals = advice_evals[pr]
         i_evals = instance_evals[pr]
+
+        def evaluate(expr):
+            return _eval_expression(expr, p, fixed_evals, a_evals, i_evals, challenges)
+
         # gates
         for gate in cs.gates:
             for poly in gate.polynomials():
-                expressions.append(
-                    _eval_expression(poly, p, fixed_evals, a_evals, i_evals, challenges)
-                )
+                expressions.append(evaluate(poly))
         # permutation expressions (permutation/verifier.rs:102-201)
         sets = permutations_evaluated[pr]
         if sets:
@@ -165,7 +274,6 @@ def verify_proof(params, vk: VerifyingKey, instances, transcript, multiopen_veri
                 expressions.append(
                     (sets[set_idx]["eval"] - sets[set_idx - 1]["last_eval"]) % p * l_0 % p
                 )
-            active = (1 - (l_last + l_blind)) % p
             for chunk_index, pset in enumerate(sets):
                 cols = cs.permutation.columns[
                     chunk_index * chunk_len : (chunk_index + 1) * chunk_len
@@ -190,6 +298,28 @@ def verify_proof(params, vk: VerifyingKey, instances, transcript, multiopen_veri
                     right = right * (ev + current_delta + gamma) % p
                     current_delta = current_delta * spec.delta % p
                 expressions.append((left - right) * active % p)
+        # lookup expressions (lookup/verifier.rs:93-168)
+        for lk, arg in zip(lookups_evaluated[pr], cs.lookups):
+
+            def compress(exprs):
+                acc = 0
+                for e in exprs:
+                    acc = (acc * theta + evaluate(e)) % p
+                return acc
+
+            z, z_next = lk["product_eval"], lk["product_next_eval"]
+            a_x, a_prev = lk["permuted_input_eval"], lk["permuted_input_inv_eval"]
+            s_x = lk["permuted_table_eval"]
+            expressions.append(l_0 * (1 - z) % p)
+            expressions.append(l_last * (z * z - z) % p)
+            left = z_next * (a_x + beta) % p * (s_x + gamma) % p
+            right = (
+                z * (compress(arg.input_expressions) + beta) % p
+                * (compress(arg.table_expressions) + gamma) % p
+            )
+            expressions.append((left - right) * active % p)
+            expressions.append(l_0 * (a_x - s_x) % p)
+            expressions.append((a_x - s_x) * (a_x - a_prev) % p * active % p)
 
     expected_h_eval = 0
     for v in expressions:
@@ -205,9 +335,19 @@ def verify_proof(params, vk: VerifyingKey, instances, transcript, multiopen_veri
     # ---- verifier queries (verifier.rs:326-388) -----------------------------
     x_next = domain.rotate_omega(x, Rotation.next())
     x_last = domain.rotate_omega(x, Rotation(-(bf + 1)))
+    x_inv = domain.rotate_omega(x, Rotation.prev())
 
     queries: List[VerifierQuery] = []
     for pr in range(num_proofs):
+        if query_instance:
+            for qidx, (column, at) in enumerate(cs.instance_queries):
+                queries.append(
+                    VerifierQuery(
+                        instance_commitments[pr][column.index],
+                        domain.rotate_omega(x, at),
+                        instance_evals[pr][qidx],
+                    )
+                )
         for qidx, (column, at) in enumerate(cs.advice_queries):
             queries.append(
                 VerifierQuery(
@@ -221,6 +361,22 @@ def verify_proof(params, vk: VerifyingKey, instances, transcript, multiopen_veri
             queries.append(VerifierQuery(pset["commitment"], x_next, pset["next_eval"]))
         for pset in list(reversed(permutations_evaluated[pr]))[1:]:
             queries.append(VerifierQuery(pset["commitment"], x_last, pset["last_eval"]))
+        for lk in lookups_evaluated[pr]:
+            queries.append(VerifierQuery(lk["product_commitment"], x, lk["product_eval"]))
+            queries.append(
+                VerifierQuery(lk["permuted_input_commitment"], x, lk["permuted_input_eval"])
+            )
+            queries.append(
+                VerifierQuery(lk["permuted_table_commitment"], x, lk["permuted_table_eval"])
+            )
+            queries.append(
+                VerifierQuery(
+                    lk["permuted_input_commitment"], x_inv, lk["permuted_input_inv_eval"]
+                )
+            )
+            queries.append(
+                VerifierQuery(lk["product_commitment"], x_next, lk["product_next_eval"])
+            )
     for qidx, (column, at) in enumerate(cs.fixed_queries):
         queries.append(
             VerifierQuery(
@@ -234,5 +390,6 @@ def verify_proof(params, vk: VerifyingKey, instances, transcript, multiopen_veri
     queries.append(VerifierQuery(h_msm, x, expected_h_eval))
     queries.append(VerifierQuery(random_poly_commitment, x, random_eval))
 
-    guard = multiopen_verify(params, transcript, queries, DualMSM(params))
-    return guard.check()
+    if strategy is None:
+        strategy = KZGSingleStrategy(params)
+    return strategy.process(lambda msm: multiopen_verify(params, transcript, queries, msm))

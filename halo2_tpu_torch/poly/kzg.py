@@ -1,8 +1,9 @@
 """KZG polynomial commitment parameters + commitments (BN254).
 
 Port of the JAX package's ``poly/kzg.py`` (the reference ParamsKZG,
-poly/kzg/commitment.rs:23-129).  The SRS is generated host-side
-(``setup_host``); commitments are the MSM of ``ops/msm.py`` over ``g`` or
+poly/kzg/commitment.rs:23-129).  The SRS is generated on the device
+(``setup``) or host-side (``setup_host``), with the same values either way;
+commitments are the MSM of ``ops/msm.py`` over ``g`` or
 ``g_lagrange`` (kzg/commitment.rs:281-292,327-334).  ``device`` is where the
 SRS lives, and with it every tensor the prover makes.
 
@@ -24,9 +25,13 @@ import numpy as np
 import torch
 
 from ..curves import bn254_g2
-from ..curves.point import Point, from_affine_ints, to_affine_ints
+from ..curves.point import Point, batch_normalize, from_affine_ints, to_affine_ints
 from ..curves.spec import BN254_G1, CurveSpec
+from ..fields import limb
+from ..fields.spec import NLIMBS
+from ..ops import ntt as ntt_ops
 from ..ops.msm import msm, msm_many
+from ..ops.scalar_mul import batch_scalar_mul
 from ..transcript.transcript import point_from_bytes, point_to_bytes
 from .polynomial import COEFF, LAGRANGE, Poly
 
@@ -50,6 +55,43 @@ class ParamsKZG:
         return self.g.x.device
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def _toxic_waste(p: int, seed: bytes) -> int:
+        s = int.from_bytes(hashlib.blake2b(seed, digest_size=64).digest(), "little") % p
+        return s or 1
+
+    @classmethod
+    def setup(cls, k: int, seed: bytes = b"halo2-tpu-kzg", device=None) -> "ParamsKZG":
+        """SRS computed on ``device``: the same values as :meth:`setup_host`.
+
+        g[i] = s^i * G and g_lagrange[i] = L_i(s) * G with the closed form
+        L_i(s) = (s^n - 1)/n * omega^i / (s - omega^i), as the JAX package's
+        ``setup``; all 2n scalar multiplications of G are one
+        ``batch_scalar_mul`` (K2/K3), then one batched affine normalization.
+        """
+        curve = cls.curve
+        fr = curve.scalar
+        n = 1 << k
+        s = cls._toxic_waste(fr.p, seed)
+        s_pows = ntt_ops.power_table(fr, s, n, device)
+        omega = pow(fr.root_of_unity, 1 << (fr.s - k), fr.p)
+        omega_pows = ntt_ops.power_table(fr, omega, n, device)
+        denom_inv = limb.batch_inv(
+            fr, limb.fsub(fr, limb.from_int(fr, s, device).reshape(NLIMBS, 1), omega_pows)
+        )
+        common = (pow(s, n, fr.p) - 1) * pow(n, -1, fr.p) % fr.p
+        li = limb.fmul(
+            fr, limb.fmul(fr, omega_pows, limb.from_int(fr, common, device).reshape(NLIMBS, 1)),
+            denom_inv,
+        )
+        gen = from_affine_ints(curve, [(curve.gx, curve.gy)], device)
+        g_broad = Point(*(c.expand(NLIMBS, 2 * n).contiguous() for c in gen))
+        pts = batch_normalize(curve, batch_scalar_mul(curve, torch.cat([s_pows, li], dim=1), g_broad))
+        g = Point(*(c[:, :n].contiguous() for c in pts))
+        g_lagrange = Point(*(c[:, n:].contiguous() for c in pts))
+        g2 = bn254_g2.G2_GENERATOR
+        return cls(k, g, g_lagrange, g2, bn254_g2.g2_mul(g2, s), s=s)
+
     @classmethod
     def setup_host(cls, k: int, seed: bytes = b"halo2-tpu-kzg", device=None) -> "ParamsKZG":
         """SRS computed host-side with Python ints.
@@ -64,9 +106,7 @@ class ParamsKZG:
         fr = curve.scalar
         p = fr.p
         n = 1 << k
-        s = int.from_bytes(hashlib.blake2b(seed, digest_size=64).digest(), "little") % p
-        if s == 0:
-            s = 1
+        s = cls._toxic_waste(p, seed)
 
         # fixed-base window table: table[w][d] = d * 16^w * G (affine)
         gpt = (curve.gx, curve.gy)
@@ -134,16 +174,17 @@ class ParamsKZG:
         assert poly.basis == COEFF
         return msm(self.curve, poly.values, self.g)
 
-    def commit_lagrange_many(self, polys, blinds=None) -> Point:
+    def commit_lagrange_many(self, polys, blinds) -> Point:
         """Commit m Lagrange polys in one batched MSM (blinds ignored, as in
         commit_lagrange).  Returns a batched Point (16, m)."""
-        assert all(p.basis == LAGRANGE for p in polys)
+        assert all(p.basis == LAGRANGE for p in polys) and len(blinds) == len(polys)
         stacked = torch.stack([p.values for p in polys], dim=0)  # (m, 16, n)
         return msm_many(self.curve, stacked, self.g_lagrange)
 
-    def commit_many(self, polys, blinds=None) -> Point:
-        """Commit m coefficient-form polys in one batched MSM over ``g``."""
-        assert all(p.basis == COEFF for p in polys)
+    def commit_many(self, polys, blinds) -> Point:
+        """Commit m coefficient-form polys in one batched MSM over ``g``
+        (blinds ignored)."""
+        assert all(p.basis == COEFF for p in polys) and len(blinds) == len(polys)
         return self.commit_coeffs_many([p.values for p in polys])
 
     def commit_coeffs(self, coeffs) -> Point:

@@ -104,6 +104,14 @@ class DualMSM:
         self.left = HostMSM(params.curve)
         self.right = HostMSM(params.curve)
 
+    def scale(self, e: int):
+        self.left.scale(e)
+        self.right.scale(e)
+
+    def add_msm(self, other: "DualMSM"):
+        self.left.add_msm(other.left)
+        self.right.add_msm(other.right)
+
     def check(self) -> bool:
         return self.params.verify_pairing(self.left.eval(), self.right.eval())
 

@@ -20,6 +20,8 @@ from halo2_tpu.curves import point as jpoint
 from halo2_tpu_torch.curves import ALL_CURVES, host, point
 from halo2_tpu_torch.curves import ec_kernels as ec
 
+torch.set_num_threads(1)  # tiny limb tensors: one thread is faster, and xdist runs several workers
+
 CURVE_NAMES = [c.name for c in ALL_CURVES]
 N = 8
 

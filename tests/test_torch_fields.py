@@ -17,6 +17,8 @@ from halo2_tpu.fields import vreg as jvreg
 from halo2_tpu_torch.fields import ALL_FIELDS, limb
 from halo2_tpu_torch.fields.mont_mul import mont_mul, mont_mul_plain
 
+torch.set_num_threads(1)  # tiny limb tensors: one thread is faster, and xdist runs several workers
+
 FIELD_NAMES = [f.name for f in ALL_FIELDS]
 
 

@@ -3,7 +3,10 @@
 Every test here needs a CUDA device and skips without one: the kernels have
 no CPU mode.  The plain versions are held to the JAX package by the CPU
 tests (test_torch_fields.py, test_torch_curves.py); here the kernels are held
-to the plain versions, exactly, on all four fields and all three curves.
+to the plain versions, exactly, on all four fields and all three curves, K1
+on the Pasta fields at n = 2^16 and K2/K3 on Pallas and Vesta at n = 2^14;
+``batch_scalar_mul`` and the device KZG setup, which run on K2/K3, against
+the host.
 This file imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda -q
@@ -157,6 +160,69 @@ def test_ec_kernels_match_plain(dev, name):
         assert torch.equal(got, want)
     summed = point.to_affine_ints(curve, point.Point(*ec.ec_add(curve, p, q)))
     assert summed == [host.double(curve, host.add(curve, a, b)) for a, b in zip(ps, qs)]
+
+
+@pytest.mark.parametrize("name", ["pasta_fp", "pasta_fq"])
+def test_mont_mul_kernel_matches_plain_on_pasta_at_full_width(dev, name):
+    (f,) = [f for f in ALL_FIELDS if f.name == name]
+    n = 1 << 16
+    a = limb.from_ints(f, _values(f.p, 21, n), dev)
+    b = limb.from_ints(f, _values(f.p, 22, n)[::-1], dev)
+    assert torch.equal(mont_mul(f, a, b), mont_mul_plain(f, a, b))
+
+
+def _chained(curve, n: int, seed: int):
+    """n distinct points R + i*S (one host add each), with the special cases."""
+    g = host.generator(curve)
+    r, s = (host.mul(curve, g, int(v))
+            for v in np.random.default_rng(seed).integers(1, 1 << 62, size=2))
+    pts = [r]
+    for _ in range(2 * n - 1):
+        pts.append(host.add(curve, pts[-1], s))
+    ps, qs = pts[:n], pts[n:]
+    ps[0] = None
+    qs[1] = None
+    qs[2] = ps[2]
+    qs[3] = host.neg(curve, ps[3])
+    ps[4] = qs[4] = None
+    return ps, qs
+
+
+@pytest.mark.parametrize("name", ["pallas", "vesta"])
+def test_ec_kernels_match_plain_on_pasta_at_full_width(dev, name):
+    (curve,) = [c for c in ALL_CURVES if c.name == name]
+    ps, qs = _chained(curve, 1 << 14, 23)
+    p, q = _projective(curve, ps, dev), _projective(curve, qs, dev)
+    for got, want in zip(ec.ec_add(curve, p, q), ec.ec_add_plain(curve, p, q)):
+        assert torch.equal(got, want)
+    for got, want in zip(ec.ec_double(curve, p), ec.ec_double_plain(curve, p)):
+        assert torch.equal(got, want)
+    summed = point.to_affine_ints(curve, point.Point(*ec.ec_add(curve, p, q)))
+    assert summed[:8] == [host.double(curve, host.add(curve, a, b)) for a, b in zip(ps[:8], qs[:8])]
+
+
+@pytest.mark.parametrize("name", [c.name for c in ALL_CURVES])
+def test_batch_scalar_mul_on_the_card_matches_host(dev, name):
+    from halo2_tpu_torch.ops.scalar_mul import batch_scalar_mul
+
+    (curve,) = [c for c in ALL_CURVES if c.name == name]
+    ps, _ = _points(curve, 24, n=64)
+    scalars = _values(curve.scalar.p, 25, 64)
+    before = ec.ec_add.launches, ec.ec_double.launches
+    got = batch_scalar_mul(curve, limb.from_ints(curve.scalar, scalars, dev),
+                           point.from_affine_ints(curve, ps, dev))
+    assert (ec.ec_add.launches - before[0], ec.ec_double.launches - before[1]) == (256, 256)
+    assert point.to_affine_ints(curve, got) == [host.mul(curve, p, s) for p, s in zip(ps, scalars)]
+
+
+def test_device_kzg_setup_on_the_card_matches_setup_host(dev):
+    from halo2_tpu_torch.poly.kzg import ParamsKZG
+
+    ours = ParamsKZG.setup(8, seed=b"card-setup", device=dev)
+    want = ParamsKZG.setup_host(8, seed=b"card-setup")
+    for name in ("g", "g_lagrange"):
+        for a, b in zip(getattr(ours, name), getattr(want, name)):
+            assert torch.equal(a.cpu(), b)
 
 
 def test_wrappers_check_operands_and_count_launches(dev):

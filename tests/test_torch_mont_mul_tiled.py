@@ -19,6 +19,8 @@ from halo2_tpu.fields.pallas_kernels import TILE, mont_mul_pallas
 from halo2_tpu_torch.fields import ALL_FIELDS, limb
 from halo2_tpu_torch.fields.mont_mul import mont_mul_tiled
 
+torch.set_num_threads(1)  # tiny limb tensors: one thread is faster, and xdist runs several workers
+
 
 def _values(p: int, seed: int, n: int) -> list:
     rs = np.random.default_rng(seed)

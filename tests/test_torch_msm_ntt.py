@@ -30,6 +30,8 @@ from halo2_tpu_torch.poly.domain import EvaluationDomain
 from halo2_tpu_torch.poly.kzg import ParamsKZG
 from halo2_tpu_torch.poly.polynomial import LAGRANGE, Poly, Rotation
 
+torch.set_num_threads(1)  # tiny limb tensors: one thread is faster, and xdist runs several workers
+
 FR = BN254_G1.scalar
 P = FR.p
 

@@ -22,6 +22,8 @@ import jax.numpy as jnp
 from halo2_tpu_torch.bench import int_chains as ic
 from halo2_tpu_torch.bench import roofline
 
+torch.set_num_threads(1)  # tiny limb tensors: one thread is faster, and xdist runs several workers
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 M32 = np.uint64(0xFFFFFFFF)
 

@@ -8,6 +8,7 @@ trip must hold.  Tolerance: exact.
 
 import numpy as np
 import pytest
+import torch
 
 from halo2_tpu.curves import host as jhost
 from halo2_tpu.curves.spec import BN254_G1 as J_G1
@@ -17,6 +18,8 @@ from halo2_tpu.transcript import TRANSCRIPTS as J_TRANSCRIPTS
 from halo2_tpu_torch.curves.spec import BN254_G1
 from halo2_tpu_torch.poly.kzg import ParamsKZG, params_from_numpy, params_to_numpy
 from halo2_tpu_torch.transcript import TRANSCRIPTS
+
+torch.set_num_threads(1)  # tiny limb tensors: one thread is faster, and xdist runs several workers
 
 P = BN254_G1.scalar.p
 
