@@ -53,13 +53,29 @@ Phases, one line each, every failure raising (non-zero exit, no result line):
    ``ParamsIPA.setup(14, VESTA)`` (the SSWU SRS on the host, g_to_lagrange
    on the card), keygen, two proves, verify through ``IPASingleStrategy``; a
    flipped byte is rejected; ``BatchVerifier`` accepts two good proofs and
-   rejects a good one beside a tampered one.
+   rejects a good one beside a tampered one;
+12. the chains, each one launch: K1's ``mont_pow`` against ``mont_pow_plain``
+   on all four fields at n = 1, 7 and 2^14 (0, 1 and p-1 included), for
+   e = p-2 and a short exponent; K3's ``ec_scalar_mul`` against its plain
+   version on BN254 G1, Pallas and Vesta at n = 1 and 2^13 (scalars 0, 1 and
+   r-1 and the identity point included); K3's ``ec_horner`` at phase 6's
+   shapes (c = 5, W = 52, m = 1 and the largest m of a batched commit), at
+   c = 4 and on Vesta.  Exact equality, projective limbs and affine form.
 
-Phases 6, 10 and 11 each zero the kernels' launch counters just before they
-start and read them just after; K1, K2 and K3 must each have been launched.
-Then one JSON line with every kernel's launches, error and times, and as the
-last line ``{"ok": true, "device": {...}}``.  Times are CUDA-event times on
-this card, kernel and plain version measured in turns in the same run.
+Phases 6, 10 and 11 each zero the kernels' launch counters (and the calls of
+``limb.finv`` and ``msm_many``) just before they start and read them just
+after; K1, K2, K3 and the chain entries ``mont_pow`` and ``ec_horner`` must
+each have been launched, and on phase 6 ``mont_pow`` launches must equal the
+``finv`` calls and ``ec_horner`` launches the ``msm_many`` calls.  Then one
+JSON line with every kernel's launches by phase, error, times and bound, and
+as the last line ``{"ok": true, "device": {...}}``.  Times are CUDA-event
+times on this card, kernel and plain version measured in the same run.  A
+bound is the larger of the bytes the function must move over 3.35 TB/s and
+its 32-bit multiply-adds (136 per Montgomery product: an 8-word CIOS
+product) over the card's 32-bit integer rate (SMs x 64 lanes x the maximum
+SM clock, ``bench/roofline.py``), for this run's inputs.  No PyTorch call
+computes a Montgomery product, an EC operation or the integer chains, so
+``library_ms`` is null throughout.
 """
 
 from __future__ import annotations
@@ -111,6 +127,66 @@ def random_field(spec, n: int, rs) -> list:
             v = (v << 63) | int(w)
         vals.append(v % spec.p)
     return vals
+
+
+def timed_once(torch, fn):
+    """(fn(), its milliseconds on the current stream, CUDA events): for the
+    plain chains, which are too slow to repeat."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+PRODUCT_MULS = 2 * 8 * 8 + 8  # 32-bit multiply-adds of one 8-word CIOS Montgomery product
+HBM_BYTES_PER_SEC = 3.35e12   # H100 SXM data sheet
+
+
+def bound(peaks: dict, nbytes: float, muls: float) -> dict:
+    """The least time for the work: bytes over HBM or multiply-adds over the
+    32-bit integer rate, whichever is longer."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_SEC, muls / peaks["int32_per_sec"]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def pow_products(e: int) -> int:
+    """Montgomery products of square-and-multiply for exponent e >= 1."""
+    return e.bit_length() - 1 + bin(e).count("1") - 1
+
+
+def scalar_mul_products(scalars) -> int:
+    """Montgomery products double-and-add needs for these scalars: 8 per
+    doubling below the top bit, 12 per add after the first."""
+    return sum(8 * max(k.bit_length() - 1, 0) + 12 * max(bin(k).count("1") - 1, 0)
+               for k in scalars)
+
+
+class CallCounter:
+    """Counts the calls of a function in every module that holds it by name
+    (``limb.finv``; ``msm_many``, imported by name into the commitment
+    modules), and the largest ``batch_of(args)`` seen."""
+
+    def __init__(self, name: str, modules, batch_of=lambda args: 0):
+        orig = getattr(modules[0], name)
+        self.calls = self.max_batch = 0
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            self.max_batch = max(self.max_batch, batch_of(args))
+            return orig(*args, **kwargs)
+
+        for mod in modules:
+            if getattr(mod, name) is not orig:
+                raise RuntimeError(f"{mod.__name__}.{name} is not the function counted")
+            setattr(mod, name, counted)
+
+    def reset(self) -> None:
+        self.calls = self.max_batch = 0
 
 
 def phase_k1(torch, limb, mont_mul_mod, spec, rs, dev, tag="[3]"):
@@ -319,15 +395,22 @@ def rejects_flipped(verify, proof: bytes, at: int) -> bool:
         return True
 
 
-def start_counting(torch, counted) -> None:
+PATH_KERNELS = ("mont_mul", "ec_add", "ec_double", "mont_pow", "ec_horner")
+
+
+def start_counting(torch, counted, calls=()) -> None:
     for fn in counted.values():
         fn.launches = 0
+    for c in calls:
+        c.reset()
     torch.cuda.reset_peak_memory_stats()
 
 
-def read_counts(torch, counted, tag: str, names=("mont_mul", "ec_add", "ec_double")) -> dict:
+def read_counts(torch, counted, tag: str, calls: dict, names=PATH_KERNELS) -> dict:
     launches = {name: fn.launches for name, fn in counted.items()}
     log(f"{tag} launches: {launches}")
+    log(f"{tag} calls: " + ", ".join(f"{k} {c.calls} (largest batch {c.max_batch})"
+                                     for k, c in calls.items()))
     log(f"{tag} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for name in names:
         if launches[name] <= 0:
@@ -493,6 +576,102 @@ def phase_ipa(torch, profiling, dev, k: int = 14) -> None:
     log_walls("[11]", walls, phases)
 
 
+def exact(torch, what: str, got, want) -> int:
+    """Raise unless every tensor of ``got`` equals its ``want``; max |err| (0)."""
+    got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    if err != 0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: kernel differs from plain (max |err| {err})")
+    return err
+
+
+def phase_mont_pow(torch, limb, mm, specs, rs, dev, peaks, ns=(1, 7, 1 << 14)) -> dict:
+    """K1's chain entry on every field at widths ``ns``; e = p-2 and e = 5."""
+    shapes, err = [], 0
+    for spec in specs:
+        r_inv = pow(spec.r, -1, spec.p)
+        for n in ns:
+            vals = random_field(spec, max(n, 8), rs)
+            vals = vals[:n] if n >= 3 else vals[-n:]  # 0, 1, p-1 from n = 7 up
+            a = limb.from_ints(spec, vals, dev)
+            for e in (spec.p - 2, 5):
+                out = mm.mont_pow(spec, a, e)
+                ref, plain_ms = timed_once(torch, lambda: mm.mont_pow_plain(spec, a, e))
+                err = max(err, exact(torch, f"mont_pow {spec.name} n={n} e bits {e.bit_length()}",
+                                     out, ref))
+                got = [v * r_inv % spec.p for v in limb.limbs_np_to_ints(out[:, :8].cpu().numpy())]
+                if got != [pow(v, e, spec.p) for v in vals[:8]]:
+                    raise AssertionError(f"mont_pow {spec.name} n={n}: differs from Python ints")
+                if e == spec.p - 2:
+                    ms = cuda_ms(lambda: mm.mont_pow(spec, a, e), 20)
+                    shapes.append({"field": spec.name, "n": n, "e": "p-2", "ms": ms,
+                                   "plain_ms": plain_ms,
+                                   **bound(peaks, 128 * n, PRODUCT_MULS * n * pow_products(e))})
+        log(f"[12] mont_pow {spec.name} n={', '.join(map(str, ns))}, e=p-2 and 5: exact match "
+            f"with plain and Python ints; e=p-2 kernel / plain ms: " + ", ".join(
+                f"n={r['n']} {r['ms']:.4f} / {r['plain_ms']:.1f}" for r in shapes[-len(ns):]))
+    return {"shapes": shapes, "max_abs_err": err}
+
+
+def phase_scalar_mul(torch, point_mod, ec, limb, curves, rs, dev, peaks,
+                     ns=(1 << 13, 1)) -> dict:
+    """K3's double-and-add chain at widths ``ns``, scalars 0, 1, r-1 and the
+    identity point included where n > 1."""
+    from halo2_tpu_torch.curves import host
+
+    shapes, err = [], 0
+    for curve in curves:
+        for n in ns:
+            aff = chained_points(curve, n, rs)
+            fr = curve.scalar
+            scalars = [int(v) ** 3 % fr.p for v in rs.integers(1, 1 << 62, size=n)]
+            if n > 1:
+                aff[0] = None
+                scalars[:4] = [0, 1, fr.p - 1, scalars[3]]
+            pts = tuple(c.contiguous() for c in ec.ec_double_plain(
+                curve, tuple(point_mod.from_affine_ints(curve, aff, dev))))  # z != 1
+            k = torch.from_numpy(limb.ints_to_limbs_np(scalars)).to(dev)
+            out = ec.ec_scalar_mul(curve, k, pts)
+            ref, plain_ms = timed_once(torch, lambda: ec.ec_scalar_mul_plain(curve, k, pts))
+            err = max(err, exact(torch, f"ec_scalar_mul {curve.name} n={n}", out, ref))
+            got = point_mod.to_affine_ints(curve, point_mod.Point(*out))
+            if got != point_mod.to_affine_ints(curve, point_mod.Point(*ref)):
+                raise AssertionError(f"ec_scalar_mul {curve.name} n={n}: affine results differ")
+            want = [host.mul(curve, host.double(curve, q), s) for q, s in zip(aff[:4], scalars)]
+            if got[:4] != want:
+                raise AssertionError(f"ec_scalar_mul {curve.name} n={n}: differs from the host")
+            ms = cuda_ms(lambda: ec.ec_scalar_mul(curve, k, pts), 5)
+            shapes.append({"curve": curve.name, "n": n, "ms": ms, "plain_ms": plain_ms,
+                           **bound(peaks, 448 * n, PRODUCT_MULS * scalar_mul_products(scalars))})
+            log(f"[12] ec_scalar_mul {curve.name} n={n}: exact match (projective and affine); "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+    return {"shapes": shapes, "max_abs_err": err}
+
+
+def phase_horner(torch, point_mod, ec, cases, rs, dev, peaks) -> dict:
+    """K3's window fold at msm_many's shapes: (curve, c, W, m) per case."""
+    shapes, err = [], 0
+    for curve, c, w, m in cases:
+        aff = chained_points(curve, m * w, rs)
+        aff[-1] = None  # an identity window sum
+        flat = ec.ec_double_plain(curve, tuple(point_mod.from_affine_ints(curve, aff, dev)))
+        sums = tuple(t.reshape(16, m, w).contiguous() for t in flat)
+        out = ec.ec_horner(curve, sums, c)
+        ref, plain_ms = timed_once(torch, lambda: ec.ec_horner_plain(curve, sums, c))
+        err = max(err, exact(torch, f"ec_horner {curve.name} c={c} W={w} m={m}", out, ref))
+        if (point_mod.to_affine_ints(curve, point_mod.Point(*out))
+                != point_mod.to_affine_ints(curve, point_mod.Point(*ref))):
+            raise AssertionError(f"ec_horner {curve.name} c={c} m={m}: affine results differ")
+        ms = cuda_ms(lambda: ec.ec_horner(curve, sums, c), 5)
+        shapes.append({"curve": curve.name, "c": c, "W": w, "m": m, "ms": ms,
+                       "plain_ms": plain_ms,
+                       **bound(peaks, 192 * (m * w + m),
+                               PRODUCT_MULS * m * (w - 1) * (8 * c + 12))})
+        log(f"[12] ec_horner {curve.name} c={c} W={w} m={m}: exact match (projective and affine); "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+    return {"shapes": shapes, "max_abs_err": err}
+
+
 def main() -> None:
     import torch
 
@@ -518,6 +697,13 @@ def main() -> None:
     from halo2_tpu_torch.fields import limb
     from halo2_tpu_torch.fields import mont_mul as mont_mul_mod
     from halo2_tpu_torch.fields.spec import BN254_FQ, BN254_FR, PASTA_FP, PASTA_FQ
+    from halo2_tpu_torch.ops import msm as msm_ops
+    from halo2_tpu_torch.poly import ipa as ipa_mod
+    from halo2_tpu_torch.poly import kzg as kzg_mod
+
+    calls = {"finv": CallCounter("finv", [limb]),
+             "msm_many": CallCounter("msm_many", [msm_ops, kzg_mod, ipa_mod],
+                                     batch_of=lambda args: int(args[1].shape[0]))}
 
     # ---- 2: build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -527,6 +713,14 @@ def main() -> None:
     for line in _cuda.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("    ptxas: " + line.strip())
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    peaks = {"int32_per_sec": roofline.arch_int32_per_sec(sms, clock_mhz)}
+    log(f"[2] bounds: {sms} SMs x 64 lanes x {clock_mhz:.0f} MHz = "
+        f"{peaks['int32_per_sec']:.4e} 32-bit multiply-adds/s; HBM {HBM_BYTES_PER_SEC:.3e} B/s")
 
     # ---- 3 / 4: kernels against their plain versions -------------------------
     rs = np.random.default_rng(SEED)
@@ -582,11 +776,12 @@ def main() -> None:
 
     counted = {
         "mont_mul": mont_mul_mod.mont_mul, "ec_add": ec.ec_add, "ec_double": ec.ec_double,
-        "mont_mul_tiled": mont_mul_mod.mont_mul_tiled,
+        "mont_pow": mont_mul_mod.mont_pow, "ec_scalar_mul": ec.ec_scalar_mul,
+        "ec_horner": ec.ec_horner, "mont_mul_tiled": mont_mul_mod.mont_mul_tiled,
         "int_muladd": ic.int_muladd_chain, "int_addmask": ic.int_addmask_chain,
     }
     os.environ["HALO2_TPU_PROFILE"] = "1"
-    start_counting(torch, counted)
+    start_counting(torch, counted, calls.values())
     vk, proof, walls, phases = keygen_and_prove(torch, profiling, params, bench, lambda pk: (
         create_proof(params, pk, [bench], [[]], FieldRng(spec, b"bench-prove-rng"),
                      Blake2bTranscript(BN254_G1), gwc_create_proof)))
@@ -597,7 +792,14 @@ def main() -> None:
     t0 = time.perf_counter()
     ok = verify(proof)
     walls["verify"] = time.perf_counter() - t0
-    launches = read_counts(torch, counted, "[6] keygen + 2 proves + verify:")
+    launches = read_counts(torch, counted, "[6] keygen + 2 proves + verify:", calls)
+    commit_m = calls["msm_many"].max_batch
+    for kern, fn in (("mont_pow", "finv"), ("ec_horner", "msm_many")):
+        if launches[kern] != calls[fn].calls:
+            raise AssertionError(f"[6] {kern} launches {launches[kern]} != {fn} calls "
+                                 f"{calls[fn].calls}: a chain did not run as one launch")
+    log(f"[6] one launch per chain: mont_pow {launches['mont_pow']} = finv calls, "
+        f"ec_horner {launches['ec_horner']} = msm_many calls (largest m {commit_m})")
     if ok is not True:
         raise AssertionError(f"k={k} proof rejected")
     if not rejects_flipped(verify, proof, len(proof) // 2):
@@ -649,49 +851,94 @@ def main() -> None:
     del dev_params
 
     # ---- 10: the pins; lookups + SHPLONK at k=14 -------------------------------
-    start_counting(torch, counted)
+    start_counting(torch, counted, calls.values())
     phase_pins(torch, dev)
     phase_lookup(torch, profiling, params, dev)
-    launches10 = read_counts(torch, counted, "[10]")
+    launches10 = read_counts(torch, counted, "[10]", calls)
 
     # ---- 11: IPA at k=14 ---------------------------------------------------------
-    start_counting(torch, counted)
+    start_counting(torch, counted, calls.values())
     phase_ipa(torch, profiling, dev)
-    launches11 = read_counts(torch, counted, "[11]")
+    launches11 = read_counts(torch, counted, "[11]", calls, PATH_KERNELS + ("ec_scalar_mul",))
+
+    # ---- 12: the chains against their plain versions -------------------------------
+    t0 = time.perf_counter()
+    pows = phase_mont_pow(torch, limb, mont_mul_mod, (BN254_FQ, BN254_FR, PASTA_FP, PASTA_FQ),
+                          rs, dev, peaks)
+    smuls = phase_scalar_mul(torch, point_mod, ec, limb, (VESTA, BN254_G1, PALLAS), rs, dev,
+                             peaks)
+    horners = phase_horner(torch, point_mod, ec, [
+        (BN254_G1, 5, 52, 1), (BN254_G1, 5, 52, commit_m), (BN254_G1, 4, 65, 1),
+        (VESTA, 5, 52, 1)], rs, dev, peaks)
+    funcs = roofline.parse_sass(_cuda.sass())
+    log("[12] SASS instructions per kernel: " + ", ".join(
+        f"{k} {len(roofline.kernel_sass(funcs, k))}"
+        for k in ("mont_pow_kernel", "ec_scalar_mul_kernel", "ec_horner_kernel",
+                  "ec_add_kernel", "ec_double_kernel")))
+    log(f"[12] the chains: {time.perf_counter() - t0:.1f} s")
 
     def main_path(name):
         """A prove-path kernel's launches in phases 6, 10 and 11."""
         by_phase = {"6": launches[name], "10": launches10[name], "11": launches11[name]}
         return {"launches": sum(by_phase.values()), "launches_by_phase": by_phase}
 
+    def roofline_path(name):
+        """A roofline kernel's launches (phase 8); phases 6, 10 and 11 run none."""
+        return {"launches": roof_launches[name],
+                "launches_by_phase": {**main_path(name)["launches_by_phase"],
+                                      "8": roof_launches[name]}}
+
     def with_pasta(bn254, pasta):
         return {**bn254, "max_abs_err": max(r["max_abs_err"] for r in [bn254, *pasta.values()]),
                 "pasta": pasta}
 
+    def chain(res):
+        """A chain entry's line: its first shape's numbers, and every shape."""
+        first = res["shapes"][0]
+        return {k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")} | {
+            "max_abs_err": res["max_abs_err"], "shapes": res["shapes"]}
+
+    n16, n14 = 1 << 16, 1 << 14
+    cells = 2048 * 128  # B1 / B2's (2048, 128) u32 block, 2^10 steps timed
     kernels = [
         {"name": "mont_mul", "route": "cuda", "source": "halo2_tpu_torch/csrc/mont_mul.cu",
          "replaces": "halo2_tpu/fields/pallas_kernels.py:129", **main_path("mont_mul"),
-         **with_pasta(k1[BN254_FR.name], pasta_k1)},
+         **with_pasta(k1[BN254_FR.name], pasta_k1),
+         **bound(peaks, 192 * n16, PRODUCT_MULS * n16)},
+        {"name": "mont_pow", "route": "cuda", "source": "halo2_tpu_torch/csrc/mont_mul.cu",
+         "replaces": "halo2_tpu/fields/pallas_kernels.py:129", **main_path("mont_pow"),
+         **chain(pows)},
         {"name": "ec_add", "route": "cuda", "source": "halo2_tpu_torch/csrc/ec.cu",
          "replaces": "halo2_tpu/curves/pallas_ec.py:161", **main_path("ec_add"),
-         **with_pasta(ec_res["ec_add"], {c: r["ec_add"] for c, r in pasta_ec.items()})},
+         **with_pasta(ec_res["ec_add"], {c: r["ec_add"] for c, r in pasta_ec.items()}),
+         **bound(peaks, 576 * n14, 12 * PRODUCT_MULS * n14)},
         {"name": "ec_double", "route": "cuda", "source": "halo2_tpu_torch/csrc/ec.cu",
          "replaces": "halo2_tpu/curves/pallas_ec.py:181", **main_path("ec_double"),
-         **with_pasta(ec_res["ec_double"], {c: r["ec_double"] for c, r in pasta_ec.items()})},
+         **with_pasta(ec_res["ec_double"], {c: r["ec_double"] for c, r in pasta_ec.items()}),
+         **bound(peaks, 384 * n14, 8 * PRODUCT_MULS * n14)},
+        {"name": "ec_scalar_mul", "route": "cuda", "source": "halo2_tpu_torch/csrc/ec.cu",
+         "replaces": "halo2_tpu/curves/pallas_ec.py:181", **main_path("ec_scalar_mul"),
+         **chain(smuls)},
+        {"name": "ec_horner", "route": "cuda", "source": "halo2_tpu_torch/csrc/ec.cu",
+         "replaces": "halo2_tpu/curves/pallas_ec.py:181", **main_path("ec_horner"),
+         **chain(horners)},
         {"name": "mont_mul_tiled", "route": "cuda",
          "source": "halo2_tpu_torch/csrc/mont_mul_tiled.cu",
-         "replaces": "halo2_tpu/fields/pallas_kernels.py:80",
-         "launches": roof_launches["mont_mul_tiled"],
-         **{k: v for k, v in k4[BN254_FR.name].items() if k != "k1_ms"}},
+         "replaces": "halo2_tpu/fields/pallas_kernels.py:80", **roofline_path("mont_mul_tiled"),
+         **{k: v for k, v in k4[BN254_FR.name].items() if k != "k1_ms"},
+         **bound(peaks, 192 * n16, PRODUCT_MULS * n16)},
         {"name": "int_muladd", "route": "cuda", "source": "halo2_tpu_torch/csrc/roofline.cu",
-         "replaces": "bench_roofline.py:53", "launches": roof_launches["int_muladd"],
+         "replaces": "bench_roofline.py:53", **roofline_path("int_muladd"),
          **chains["int_muladd"],
          "max_abs_err": max(chains[f]["max_abs_err"]
-                            for f in ("int_muladd", "int_muladd_wide", "int_muladd_hi"))},
+                            for f in ("int_muladd", "int_muladd_wide", "int_muladd_hi")),
+         **bound(peaks, 8 * cells, cells * (1 << 10))},
         {"name": "int_addmask", "route": "cuda", "source": "halo2_tpu_torch/csrc/roofline.cu",
-         "replaces": "bench_roofline.py:85", "launches": roof_launches["int_addmask"],
-         **chains["int_addmask"]},
+         "replaces": "bench_roofline.py:85", **roofline_path("int_addmask"),
+         **chains["int_addmask"], **bound(peaks, 8 * cells, 2 * cells * (1 << 10))},
     ]
+    for kern in kernels:
+        kern["library_ms"] = None  # no PyTorch call computes these functions
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

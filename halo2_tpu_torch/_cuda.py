@@ -12,6 +12,7 @@ of the package on hosts without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -21,7 +22,7 @@ import time
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 _SOURCES = ("mont_mul.cu", "ec.cu", "mont_mul_tiled.cu", "roofline.cu")
-_HEADERS = ("field.cuh",)
+_HEADERS = ("field.cuh", "ec.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,10 +34,15 @@ build_log = ""  # nvcc's output of the build this process ran ("" if it reused o
 build_seconds = 0.0
 
 _P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_U32 = ctypes.c_uint32
 _SIGNATURES = {
-    "h2_mont_mul": [_P, _P, _P, ctypes.c_int64, _P, ctypes.c_uint32, _P],
-    "h2_ec_add": [_P] * 9 + [ctypes.c_int64, _P, ctypes.c_uint32, ctypes.c_uint32, _P],
-    "h2_ec_double": [_P] * 6 + [ctypes.c_int64, _P, ctypes.c_uint32, ctypes.c_uint32, _P],
+    "h2_mont_mul": [_P, _P, _P, _I64, _P, _U32, _P],
+    "h2_mont_pow": [_P, _P, _I64, _P, _U32, _P, _I64, _P],
+    "h2_ec_add": [_P] * 9 + [_I64, _P, _U32, _U32, _P],
+    "h2_ec_double": [_P] * 6 + [_I64, _P, _U32, _U32, _P],
+    "h2_ec_scalar_mul": [_P] * 7 + [_I64, _P, _U32, _U32, _P, _P],
+    "h2_ec_horner": [_P] * 6 + [_I64, _I64, _I64, _P, _U32, _U32, _P],
     "h2_mont_mul_tiled": [_P, _P, _P, ctypes.c_int64, _P, ctypes.c_uint32, _P],
     "h2_int_muladd": [_P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P],
     "h2_int_addmask": [_P, _P, ctypes.c_int64, ctypes.c_int, _P],
@@ -122,11 +128,20 @@ def sass() -> str:
     return proc.stdout
 
 
+def words_arg(v: int):
+    """A 256-bit integer as 8 little-endian uint32 words in host memory."""
+    return (ctypes.c_uint32 * 8)(*[(v >> (32 * j)) & 0xFFFFFFFF for j in range(8)])
+
+
+@functools.lru_cache(maxsize=None)
+def _modulus_args(p: int):
+    return words_arg(p), (-pow(p, -1, 1 << 32)) % (1 << 32)
+
+
 def modulus_args(spec):
-    """(p as 8 little-endian uint32 words in host memory, -p^-1 mod 2^32)."""
-    words = (ctypes.c_uint32 * 8)(*[(spec.p >> (32 * j)) & 0xFFFFFFFF for j in range(8)])
-    n0 = (-pow(spec.p, -1, 1 << 32)) % (1 << 32)
-    return words, n0
+    """(p as 8 little-endian uint32 words in host memory, -p^-1 mod 2^32),
+    built once per modulus: the kernels only read the words."""
+    return _modulus_args(spec.p)
 
 
 def modulus16_args(spec):

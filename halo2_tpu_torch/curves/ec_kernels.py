@@ -1,4 +1,5 @@
-"""K2 / K3: complete EC add and double on (16, n) int32 coordinate arrays.
+"""K2 / K3: complete EC add and double on (16, n) int32 coordinate arrays,
+and K3's two chain entries.
 
 ``ec_add`` and ``ec_double`` wrap the CUDA kernels of ``csrc/ec.cu``, which
 replace the JAX package's Pallas kernels ``curves/pallas_ec.py``
@@ -13,16 +14,31 @@ batched as in the JAX package's ``curves/point.py``.  Every intermediate is
 the same field value as in the kernel, so kernel and plain outputs agree limb
 for limb, projective coordinates included.  A CUDA tensor launches the kernel
 or raises.
+
+The chain entries run a whole chain of K3 (with K2's body) in one launch,
+each point's chain in one thread's registers, where the JAX package runs one
+``fori_loop`` in one jitted program:
+
+- ``ec_scalar_mul``: k_i * P_i per lane by double-and-add over the 256 bits
+  of k_i, low bit first (the loop of ``ops/scalar_mul.py``
+  ``batch_scalar_mul``);
+- ``ec_horner``: the window fold of ``ops/msm.py`` ``msm_many``, c doublings
+  and one add per window.
+
+Their plain versions, ``ec_scalar_mul_plain`` and ``ec_horner_plain``, are the
+same loops over ``ec_add_plain`` / ``ec_double_plain``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from .. import _cuda
 from ..fields import limb
 from ..fields.mont_mul import mont_mul_plain
-from ..fields.spec import NLIMBS, int_to_limbs
+from ..fields.spec import LIMB_BITS, NLIMBS, int_to_limbs
 from .spec import CurveSpec
 
 
@@ -95,9 +111,11 @@ def ec_double_plain(curve: CurveSpec, p):
     return fin[:, 1], fin[:, 0], m2[:, 1]
 
 
+@functools.lru_cache(maxsize=None)
 def _launch_args(curve: CurveSpec):
+    """(p words, n0, 3b, R mod p words) for the base field, built once per curve."""
     words, n0 = _cuda.modulus_args(curve.base)
-    return words, n0, 3 * curve.b
+    return words, n0, 3 * curve.b, _cuda.words_arg(curve.base.r)
 
 
 def ec_add(curve: CurveSpec, p, q):
@@ -110,7 +128,7 @@ def ec_add(curve: CurveSpec, p, q):
     if n == 0:
         return out
     lib = _cuda.library()
-    words, n0, b3 = _launch_args(curve)
+    words, n0, b3, _ = _launch_args(curve)
     with torch.cuda.device(coords[0].device):
         rc = lib.h2_ec_add(
             *[c.data_ptr() for c in coords + out], n, words, n0, b3,
@@ -131,7 +149,7 @@ def ec_double(curve: CurveSpec, p):
     if n == 0:
         return out
     lib = _cuda.library()
-    words, n0, b3 = _launch_args(curve)
+    words, n0, b3, _ = _launch_args(curve)
     with torch.cuda.device(coords[0].device):
         rc = lib.h2_ec_double(
             *[c.data_ptr() for c in coords + out], n, words, n0, b3,
@@ -144,3 +162,95 @@ def ec_double(curve: CurveSpec, p):
 
 ec_add.launches = 0
 ec_double.launches = 0
+
+
+def _identity_like(curve: CurveSpec, x):
+    one = limb.const(curve.base.r_limbs, x.dim(), x.device)
+    return torch.zeros_like(x), one.expand(x.shape).clone(), torch.zeros_like(x)
+
+
+def ec_scalar_mul_plain(curve: CurveSpec, scalars, p):
+    """k_i * P_i by double-and-add over the 256 bits of k_i, low bit first:
+    acc = bit ? acc + base : acc; base = 2 base.  ``scalars`` are canonical
+    (16, n) scalar-field limbs (not Montgomery form), non-negative int32, so
+    no shift meets a negative value."""
+    shifts = torch.arange(LIMB_BITS, dtype=scalars.dtype, device=scalars.device)
+    bits = (scalars.unsqueeze(1) >> shifts.reshape(1, LIMB_BITS, 1)) & 1
+    bits = bits.reshape(NLIMBS * LIMB_BITS, -1).bool()
+    acc = _identity_like(curve, p[0])
+    base = tuple(p)
+    for i in range(NLIMBS * LIMB_BITS):
+        added = ec_add_plain(curve, acc, base)
+        acc = tuple(torch.where(bits[i].unsqueeze(0), a, b) for a, b in zip(added, acc))
+        base = ec_double_plain(curve, base)
+    return acc
+
+
+def ec_scalar_mul(curve: CurveSpec, scalars, p):
+    """k_i * P_i for canonical (16, n) scalar limbs and an (x, y, z) triple of
+    (16, n) int32 arrays (K3's chain entry, with K2's body): one launch."""
+    coords = (scalars,) + tuple(p)
+    if all(c.device.type == "cpu" for c in coords):
+        return ec_scalar_mul_plain(curve, scalars, p)
+    n = _cuda.check_operands("ec_scalar_mul", *coords)
+    out = tuple(torch.empty_like(coords[1]) for _ in range(3))
+    if n == 0:
+        return out
+    lib = _cuda.library()
+    words, n0, b3, one = _launch_args(curve)
+    with torch.cuda.device(scalars.device):
+        rc = lib.h2_ec_scalar_mul(
+            *[c.data_ptr() for c in coords + out], n, words, n0, b3, one,
+            _cuda.stream_ptr(scalars),
+        )
+    _cuda.check(rc, "ec_scalar_mul")
+    ec_scalar_mul.launches += 1
+    return out
+
+
+ec_scalar_mul.launches = 0
+
+
+def ec_horner_plain(curve: CurveSpec, sums, c: int):
+    """The window fold of ``msm_many``: ``sums`` is an (x, y, z) triple of
+    (16, m, W) window sums; acc = S[W-1], then for each earlier window w, c
+    doublings and acc + S[w].  Returns an (x, y, z) triple of (16, m)."""
+    w = sums[0].shape[2]
+    acc = tuple(s[:, :, w - 1].contiguous() for s in sums)
+    for wi in range(w - 2, -1, -1):
+        for _ in range(c):
+            acc = ec_double_plain(curve, acc)
+        acc = ec_add_plain(curve, acc, tuple(s[:, :, wi].contiguous() for s in sums))
+    return acc
+
+
+def ec_horner(curve: CurveSpec, sums, c: int):
+    """``ec_horner_plain``'s fold (K3's chain entry, with K2's body): one launch,
+    one thread per column."""
+    if c < 1:
+        raise ValueError(f"ec_horner: the window width must be >= 1, got {c}")
+    if all(s.device.type == "cpu" for s in sums):
+        return ec_horner_plain(curve, sums, c)
+    shapes = {tuple(s.shape) for s in sums}
+    if len(shapes) != 1 or len(sums[0].shape) != 3 or sums[0].shape[2] < 1:
+        raise ValueError(f"ec_horner: sums must share one (16, m, W) shape, W >= 1, got {shapes}")
+    _, m, w = sums[0].shape
+    flat = tuple(s.contiguous().reshape(NLIMBS, m * w) for s in sums)
+    _cuda.check_operands("ec_horner", *flat)
+    out = tuple(torch.empty((NLIMBS, m), dtype=torch.int32, device=flat[0].device)
+                for _ in range(3))
+    if m == 0:
+        return out
+    lib = _cuda.library()
+    words, n0, b3, _ = _launch_args(curve)
+    with torch.cuda.device(flat[0].device):
+        rc = lib.h2_ec_horner(
+            *[t.data_ptr() for t in flat + out], m, w, c, words, n0, b3,
+            _cuda.stream_ptr(flat[0]),
+        )
+    _cuda.check(rc, "ec_horner")
+    ec_horner.launches += 1
+    return out
+
+
+ec_horner.launches = 0

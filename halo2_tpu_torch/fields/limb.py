@@ -6,7 +6,8 @@ little-endian 16-bit limbs with the **limb axis leading**: n elements are a
 2^16); CPU torch has no uint32 ``+ - >>`` or comparisons.  Values are in
 Montgomery form (v·R mod p, R = 2^256).
 
-``fmul`` goes through the K1 wrapper (``fields/mont_mul.py``): the CUDA kernel
+``fmul`` goes through the K1 wrapper (``fields/mont_mul.py``) and
+``fpow_const``/``finv`` through its chain entry ``mont_pow``: the CUDA kernel
 for tensors on the card, its plain torch version for tensors on the CPU.
 ``fadd``/``fsub``/``fneg`` are the reference's 16-step carry and borrow chains
 as eager torch ops (about 130 launches each; see PERF.md).  Every intermediate
@@ -22,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .mont_mul import mont_mul
+from .mont_mul import mont_mul, mont_pow
 from .spec import LIMB_BITS, LIMB_MASK, NLIMBS, FieldSpec, int_to_limbs
 
 DTYPE = torch.int32
@@ -188,23 +189,12 @@ def one_like(spec: FieldSpec, a):
 # ---------------------------------------------------------------------------
 
 def fpow_const(spec: FieldSpec, a, e: int):
-    """a^e for a Python-int exponent: square-and-multiply over the bits of e.
-
-    The reference runs a ``fori_loop`` with a select on each bit; here the
-    exponent is known on the host, so the loop is a Python loop and a zero
-    bit costs no multiply.  Same products, same result.
-    """
+    """a^e for a Python-int exponent, through K1's chain entry ``mont_pow``:
+    one launch on the card, its plain loop on the CPU."""
     if e == 0:
         return one_like(spec, a).clone()
-    acc = None
-    base = a
-    while e:
-        if e & 1:
-            acc = base if acc is None else fmul(spec, acc, base)
-        e >>= 1
-        if e:
-            base = fsquare(spec, base)
-    return acc
+    shape = a.shape
+    return mont_pow(spec, a.reshape(NLIMBS, -1).contiguous(), e).reshape(shape)
 
 
 def finv(spec: FieldSpec, a):

@@ -8,6 +8,12 @@ REDC written as torch ops in int64; a CUDA tensor launches the kernel or
 raises.  Both return the unique a*b*2^-256 mod p in [0, p) for inputs in
 [0, p), so they agree limb for limb.
 
+``mont_pow`` is K1's chain entry, the kernel ``mont_pow_kernel`` of the same
+source: a^e for one exponent, square-and-multiply in registers, one launch
+for the whole chain (the Fermat inversion a^(p-2) of ``limb.finv`` is its main
+caller).  Its plain version ``mont_pow_plain`` is the same chain as a loop of
+``mont_mul_plain``; both agree limb for limb with a loop of K1 launches.
+
 ``mont_mul_tiled`` is the wrapper of K4, ``csrc/mont_mul_tiled.cu``, which
 replaces the lane-tiled Pallas kernel ``mont_mul_pallas`` (body
 ``_mont_mul_block``) with the TPU's own 16-bit algorithm; its plain version
@@ -80,6 +86,53 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 mont_mul.launches = 0
+
+
+def _check_exponent(e: int) -> None:
+    if not 0 < e < 1 << 256:
+        raise ValueError(f"mont_pow: the exponent must lie in [1, 2^256), got {e}")
+
+
+def mont_pow_plain(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e for a (16, n) Montgomery array, square-and-multiply over the bits
+    of e, low bit first, as a loop of ``mont_mul_plain``: a zero bit costs no
+    product.  0 maps to 0."""
+    _check_exponent(e)
+    acc = None
+    base = a
+    while e:
+        if e & 1:
+            acc = base if acc is None else mont_mul_plain(spec, acc, base)
+        e >>= 1
+        if e:
+            base = mont_mul_plain(spec, base, base)
+    return acc
+
+
+def mont_pow(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e for a (16, n) int32 Montgomery array and an exponent in [1, 2^256)
+    (K1's chain entry): one launch for the whole chain."""
+    _check_exponent(e)
+    if a.device.type == "cpu":
+        return mont_pow_plain(spec, a, e)
+    n = _cuda.check_operands("mont_pow", a)
+    out = torch.empty_like(a)
+    if n == 0:
+        return out
+    lib = _cuda.library()
+    words, n0 = _cuda.modulus_args(spec)
+    e_words = _cuda.words_arg(e)
+    with torch.cuda.device(a.device):
+        rc = lib.h2_mont_pow(
+            a.data_ptr(), out.data_ptr(), n, words, n0, e_words, e.bit_length(),
+            _cuda.stream_ptr(a),
+        )
+    _cuda.check(rc, "mont_pow")
+    mont_pow.launches += 1
+    return out
+
+
+mont_pow.launches = 0
 
 
 def mont_mul_tiled(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,8 @@ layout without the TPU's 128-lane rows:
   5. one pairwise tree-fold over the point axis for all windows and all
      columns at once: log2(n) K2 launches
   6. window combination by Horner over the windows, all columns in
-     parallel: (W-1)(c+1) K3/K2 launches
+     parallel: one launch of K3's chain entry ``ec_horner``, (W-1)c
+     doublings and W-1 adds per column in one thread's registers
 
 Work: (ceil(256/c) + 2^(c-1) - 1) * n complete adds.  The result is the same
 group element as any other MSM algorithm, so callers compare it in affine
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..curves import ec_kernels
 from ..curves.point import Point, ec_add, ec_double, identity
 from ..curves.spec import CurveSpec
 from ..fields import limb
@@ -97,7 +99,7 @@ def msm_many(curve: CurveSpec, scalars_mont, points: Point, c: int = 0) -> Point
     scalars_mont: (m, 16, n) Montgomery-form scalar-field limbs; points: a
     (16, n) Point.  Returns a projective Point with coordinates (16, m).
     The window table is built once and every column's windows join the same
-    tree-fold and the same Horner chain.
+    tree-fold and the same Horner launch.
     """
     m, _, n = scalars_mont.shape
     dev = scalars_mont.device
@@ -126,12 +128,7 @@ def msm_many(curve: CurveSpec, scalars_mont, points: Point, c: int = 0) -> Point
     y = torch.where(neg, limb.fneg(curve.base, y), y)
 
     sums = _fold_points(curve, Point(x, y, z))  # (16, m, W)
-    acc = Point(*(s[:, :, w - 1].contiguous() for s in sums))
-    for wi in range(w - 2, -1, -1):
-        for _ in range(c):
-            acc = ec_double(curve, acc)
-        acc = ec_add(curve, acc, Point(*(s[:, :, wi].contiguous() for s in sums)))
-    return acc
+    return Point(*ec_kernels.ec_horner(curve, tuple(sums), c))
 
 
 def msm(curve: CurveSpec, scalars_mont, points: Point, c: int = 0) -> Point:

@@ -17,7 +17,9 @@ strategy.rs}) over the Pasta cycle:
   x-keyed base dedup and the s-vector expansion ``compute_s``.
 
 ``params_from_numpy`` / ``params_to_numpy`` carry an SRS between this package
-and the JAX one, as the KZG pair in ``poly/kzg.py`` does.
+and the JAX one, as the KZG pair in ``poly/kzg.py`` does.  As there, the SRS
+and every tensor of a proof live on the card unless the caller passes
+another ``device``.
 """
 
 from __future__ import annotations
@@ -90,7 +92,7 @@ class ParamsIPA:
 
     @classmethod
     def setup(cls, k: int, curve: CurveSpec = PALLAS, seed: bytes = b"Halo2-Parameters",
-              device=None) -> "ParamsIPA":
+              device="cuda") -> "ParamsIPA":
         """The SRS points on the host, then g_lagrange on ``device``."""
         with profiling.phase("ipa setup: SRS points (host)"):
             pts, w, u = _srs_points(k, curve, seed)
@@ -145,7 +147,7 @@ class ParamsIPA:
 # ---------------------------------------------------------------------------
 
 
-def params_from_numpy(state: dict, device=None) -> ParamsIPA:
+def params_from_numpy(state: dict, device="cuda") -> ParamsIPA:
     """ParamsIPA from numpy state: ``k``, ``curve`` (its name), ``g`` and
     ``g_lagrange`` as (x, y, z) triples of (16, n) uint32 Montgomery limb
     arrays, ``w`` and ``u`` as affine (x, y) ints."""

@@ -5,7 +5,8 @@ poly/kzg/commitment.rs:23-129).  The SRS is generated on the device
 (``setup``) or host-side (``setup_host``), with the same values either way;
 commitments are the MSM of ``ops/msm.py`` over ``g`` or
 ``g_lagrange`` (kzg/commitment.rs:281-292,327-334).  ``device`` is where the
-SRS lives, and with it every tensor the prover makes.
+SRS lives, and with it every tensor the prover makes: the card unless the
+caller passes another (``device="cpu"`` runs the plain kernel versions).
 
 ``params_from_numpy`` / ``params_to_numpy`` carry an SRS between this package
 and the JAX one: point coordinates as (16, n) uint32 Montgomery limb arrays,
@@ -61,7 +62,7 @@ class ParamsKZG:
         return s or 1
 
     @classmethod
-    def setup(cls, k: int, seed: bytes = b"halo2-tpu-kzg", device=None) -> "ParamsKZG":
+    def setup(cls, k: int, seed: bytes = b"halo2-tpu-kzg", device="cuda") -> "ParamsKZG":
         """SRS computed on ``device``: the same values as :meth:`setup_host`.
 
         g[i] = s^i * G and g_lagrange[i] = L_i(s) * G with the closed form
@@ -93,7 +94,7 @@ class ParamsKZG:
         return cls(k, g, g_lagrange, g2, bn254_g2.g2_mul(g2, s), s=s)
 
     @classmethod
-    def setup_host(cls, k: int, seed: bytes = b"halo2-tpu-kzg", device=None) -> "ParamsKZG":
+    def setup_host(cls, k: int, seed: bytes = b"halo2-tpu-kzg", device="cuda") -> "ParamsKZG":
         """SRS computed host-side with Python ints.
 
         Same values as the JAX package's ``setup_host`` / ``setup``: 4-bit
@@ -242,7 +243,7 @@ class ParamsKZG:
                     f.write(c.to_bytes(32, "little"))
 
     @classmethod
-    def read(cls, path: str, device=None) -> "ParamsKZG":
+    def read(cls, path: str, device="cuda") -> "ParamsKZG":
         curve = cls.curve
         with open(path, "rb") as f:
             (k,) = struct.unpack("<I", f.read(4))
@@ -271,7 +272,7 @@ def _g2_from_ints(t):
     return (bn254_g2.Fq2(x0, x1), bn254_g2.Fq2(y0, y1))
 
 
-def params_from_numpy(state: dict, device=None) -> ParamsKZG:
+def params_from_numpy(state: dict, device="cuda") -> ParamsKZG:
     """ParamsKZG from numpy state: ``k``, ``g`` and ``g_lagrange`` as (x, y, z)
     triples of (16, n) uint32 Montgomery limb arrays, ``g2`` and ``s_g2`` as
     ((x.c0, x.c1), (y.c0, y.c1)) ints, optional ``s``."""

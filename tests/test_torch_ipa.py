@@ -37,7 +37,7 @@ INSTANCES = [[[INSTANCE]], [[INSTANCE]]]
 
 @pytest.fixture(scope="module")
 def ipa():
-    params = ParamsIPA.setup(5, seed=b"plonk-api-ipa")
+    params = ParamsIPA.setup(5, seed=b"plonk-api-ipa", device="cpu")
     empty = StandardPlonkCircuit(Value.unknown(), TABLE)
     vk = keygen_vk(params, empty)
     pk = keygen_pk(params, vk, empty)

@@ -58,7 +58,7 @@ def _points(curve, n: int, seed: int):
 
 @pytest.fixture(scope="module")
 def vesta_vk():
-    params = ipa.ParamsIPA.setup(5, VESTA)  # the reference's "Halo2-Parameters" SRS
+    params = ipa.ParamsIPA.setup(5, VESTA, device="cpu")  # the reference's "Halo2-Parameters" SRS
     return params, keygen_vk(params, StandardPlonkCircuit(Value.unknown(),
                                                           plonk_api_common(VESTA.scalar)[2]))
 
@@ -127,7 +127,8 @@ def test_g_to_lagrange_matches_jax():
 
 
 def test_device_kzg_setup_matches_setup_host():
-    dev, hst = ParamsKZG.setup(4, seed=b"setup-equiv"), ParamsKZG.setup_host(4, seed=b"setup-equiv")
+    dev, hst = (ParamsKZG.setup(4, seed=b"setup-equiv", device="cpu"),
+                ParamsKZG.setup_host(4, seed=b"setup-equiv", device="cpu"))
     assert dev.s == hst.s and dev.s_g2 == hst.s_g2
     for name in ("g", "g_lagrange"):
         a, b = getattr(dev, name), getattr(hst, name)
@@ -147,7 +148,7 @@ def test_params_from_numpy_roundtrips_a_jax_params():
         **{name: tuple(np.asarray(c) for c in getattr(jparams, name))
            for name in ("g", "g_lagrange")},
     }
-    params = ipa.params_from_numpy(state)
+    params = ipa.params_from_numpy(state, device="cpu")
     assert params.curve in ALL_CURVES and params.curve.name == jc.name
     assert point.to_affine_ints(curve, params.g) == g
     assert point.to_affine_ints(curve, params.g_lagrange) == gl

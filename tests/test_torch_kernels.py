@@ -1,12 +1,14 @@
-"""The CUDA kernels K1-K4, B1 and B2 against their plain torch versions, on a card.
+"""The CUDA kernels K1-K4, B1 and B2 and the chain entries of K1 and K3
+against their plain torch versions, on a card.
 
 Every test here needs a CUDA device and skips without one: the kernels have
 no CPU mode.  The plain versions are held to the JAX package by the CPU
 tests (test_torch_fields.py, test_torch_curves.py); here the kernels are held
 to the plain versions, exactly, on all four fields and all three curves, K1
 on the Pasta fields at n = 2^16 and K2/K3 on Pallas and Vesta at n = 2^14;
-``batch_scalar_mul`` and the device KZG setup, which run on K2/K3, against
-the host.
+``mont_pow``, ``ec_scalar_mul`` and ``ec_horner`` on every field or curve;
+``batch_scalar_mul`` and the device KZG setup, which run on the chains,
+against the host.
 This file imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda -q
@@ -26,7 +28,9 @@ from halo2_tpu_torch.curves import ALL_CURVES, host, point
 from halo2_tpu_torch.curves import ec_kernels as ec
 from halo2_tpu_torch.curves.spec import BN254_G1
 from halo2_tpu_torch.fields import ALL_FIELDS, limb
-from halo2_tpu_torch.fields.mont_mul import mont_mul, mont_mul_plain, mont_mul_tiled
+from halo2_tpu_torch.fields.mont_mul import (
+    mont_mul, mont_mul_plain, mont_mul_tiled, mont_pow, mont_pow_plain,
+)
 from halo2_tpu_torch.ops import msm as msm_ops
 from halo2_tpu_torch.ops import ntt as ntt_ops
 
@@ -208,10 +212,11 @@ def test_batch_scalar_mul_on_the_card_matches_host(dev, name):
     (curve,) = [c for c in ALL_CURVES if c.name == name]
     ps, _ = _points(curve, 24, n=64)
     scalars = _values(curve.scalar.p, 25, 64)
-    before = ec.ec_add.launches, ec.ec_double.launches
+    before = ec.ec_add.launches, ec.ec_double.launches, ec.ec_scalar_mul.launches
     got = batch_scalar_mul(curve, limb.from_ints(curve.scalar, scalars, dev),
                            point.from_affine_ints(curve, ps, dev))
-    assert (ec.ec_add.launches - before[0], ec.ec_double.launches - before[1]) == (256, 256)
+    after = ec.ec_add.launches, ec.ec_double.launches, ec.ec_scalar_mul.launches
+    assert tuple(a - b for a, b in zip(after, before)) == (0, 0, 1)  # one chain launch
     assert point.to_affine_ints(curve, got) == [host.mul(curve, p, s) for p, s in zip(ps, scalars)]
 
 
@@ -219,7 +224,7 @@ def test_device_kzg_setup_on_the_card_matches_setup_host(dev):
     from halo2_tpu_torch.poly.kzg import ParamsKZG
 
     ours = ParamsKZG.setup(8, seed=b"card-setup", device=dev)
-    want = ParamsKZG.setup_host(8, seed=b"card-setup")
+    want = ParamsKZG.setup_host(8, seed=b"card-setup", device="cpu")
     for name in ("g", "g_lagrange"):
         for a, b in zip(getattr(ours, name), getattr(want, name)):
             assert torch.equal(a.cpu(), b)
@@ -299,3 +304,71 @@ def test_entry_proof_on_the_card_matches_pin(dev):
     with open(os.path.join(HERE, "data", "dryrun_proof_k6.hex")) as fh:
         assert proof == bytes.fromhex(fh.read().strip())
     assert verify_proof(params, vk, [[[inst]]], Blake2bTranscript(BN254_G1, proof), gwc_verify_proof)
+
+
+@pytest.mark.parametrize("name", [f.name for f in ALL_FIELDS])
+@pytest.mark.parametrize("n", [1, 7, 4099])
+def test_mont_pow_kernel_matches_plain(dev, name, n):
+    (f,) = [f for f in ALL_FIELDS if f.name == name]
+    a = limb.from_ints(f, _values(f.p, 30, n), dev)
+    for e in (1, 2, 13, f.p - 2):
+        assert torch.equal(mont_pow(f, a, e), mont_pow_plain(f, a, e))
+
+
+def _canonical(vals, dev):
+    return torch.from_numpy(limb.ints_to_limbs_np(vals)).to(dev)
+
+
+@pytest.mark.parametrize("name", [c.name for c in ALL_CURVES])
+def test_ec_scalar_mul_kernel_matches_plain(dev, name):
+    (curve,) = [c for c in ALL_CURVES if c.name == name]
+    ps, _ = _points(curve, 31)  # the identity first
+    scalars = _values(curve.scalar.p, 32, len(ps))  # 0, 1 and r-1 first
+    k, p = _canonical(scalars, dev), _projective(curve, ps, dev)
+    got, want = ec.ec_scalar_mul(curve, k, p), ec.ec_scalar_mul_plain(curve, k, p)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert point.to_affine_ints(curve, point.Point(*got)) == [
+        host.mul(curve, host.double(curve, q), s) for q, s in zip(ps, scalars)]
+
+
+@pytest.mark.parametrize("name", [c.name for c in ALL_CURVES])
+@pytest.mark.parametrize("c,m,w", [(4, 1, 65), (5, 3, 52), (5, 1, 1)])
+def test_ec_horner_kernel_matches_plain(dev, name, c, m, w):
+    (curve,) = [cv for cv in ALL_CURVES if cv.name == name]
+    ps, qs = _points(curve, 33, n=max(m * w, 5))
+    sums = tuple(t[:, : m * w].reshape(16, m, w).contiguous()
+                 for t in _projective(curve, (ps + qs)[: max(m * w, 5)], dev))
+    got, want = ec.ec_horner(curve, sums, c), ec.ec_horner_plain(curve, sums, c)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_chain_wrappers_check_operands_and_count_launches(dev):
+    f, curve = BN254_G1.base, BN254_G1
+    a = limb.from_ints(f, _values(f.p, 34, 64), dev)
+    with pytest.raises(ValueError, match="int32"):
+        mont_pow(f, a.long(), 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        mont_pow(f, a[:, ::2], 5)
+    with pytest.raises(ValueError, match="exponent"):
+        mont_pow(f, a, 0)
+    coords = tuple(limb.from_ints(f, [1] * 8, dev) for _ in range(3))
+    k = _canonical([3] * 8, dev)
+    with pytest.raises(ValueError, match="shape"):
+        ec.ec_scalar_mul(curve, k[:, :4].contiguous(), coords)
+    with pytest.raises(ValueError, match="CUDA"):
+        ec.ec_scalar_mul(curve, k.cpu(), coords)
+    sums = tuple(c.reshape(16, 2, 4) for c in coords)
+    with pytest.raises(ValueError, match="window width"):
+        ec.ec_horner(curve, sums, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ec.ec_horner(curve, (sums[0].cpu(),) + sums[1:], 4)
+    before = mont_pow.launches, ec.ec_scalar_mul.launches, ec.ec_horner.launches
+    mont_pow(f, a, 5)
+    ec.ec_scalar_mul(curve, k, coords)
+    ec.ec_horner(curve, sums, 4)
+    after = mont_pow.launches, ec.ec_scalar_mul.launches, ec.ec_horner.launches
+    assert tuple(x - y for x, y in zip(after, before)) == (1, 1, 1)
+    assert mont_pow(f, a[:, :0].contiguous(), 5).shape == (16, 0)
+    assert mont_pow.launches == after[0]  # nothing to launch for n = 0

@@ -70,7 +70,7 @@ def _pin(name: str) -> bytes:
 
 @pytest.fixture(scope="module")
 def kzg():
-    params = ParamsKZG.setup_host(K, seed=b"plonk-api")
+    params = ParamsKZG.setup_host(K, seed=b"plonk-api", device="cpu")
     empty = StandardPlonkCircuit(Value.unknown(), TABLE)
     vk = keygen_vk(params, empty)
     return params, vk, keygen_pk(params, vk, empty)
@@ -214,7 +214,7 @@ def test_tuple_lookup_compressed_values_match_jax():
 
 @pytest.fixture(scope="module")
 def tuple_lookup():
-    params = ParamsKZG.setup_host(4, seed=b"tuple-lookup")
+    params = ParamsKZG.setup_host(4, seed=b"tuple-lookup", device="cpu")
     circuit = TupleLookupCircuit(4)
     vk = keygen_vk(params, circuit)
     pk = keygen_pk(params, vk, circuit)

@@ -97,7 +97,7 @@ def test_msm_many_matches_host():
 
 
 def test_kzg_commits_match_host():
-    params = ParamsKZG.setup_host(3, seed=b"commit-test")
+    params = ParamsKZG.setup_host(3, seed=b"commit-test", device="cpu")
     g = point.to_affine_ints(BN254_G1, params.g)
     g_lag = point.to_affine_ints(BN254_G1, params.g_lagrange)
     vals = _ints(60, 8)

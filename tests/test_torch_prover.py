@@ -47,7 +47,7 @@ class CountingEntryCircuit(EntryCircuit):
 
 @pytest.fixture(scope="module")
 def entry():
-    params = ParamsKZG.setup_host(6, seed=b"dryrun")
+    params = ParamsKZG.setup_host(6, seed=b"dryrun", device="cpu")
     circuit = CountingEntryCircuit(1, Value.known(5))
     CountingEntryCircuit.syntheses = 0
     vk = keygen_vk(params, circuit.without_witnesses())
@@ -122,7 +122,7 @@ from torch_circuits import BenchPlonkCircuit
 
 k = 5
 spec = BN254_G1.scalar
-params = ParamsKZG.setup_host(k, seed=b"bench-prove")
+params = ParamsKZG.setup_host(k, seed=b"bench-prove", device="cpu")
 circuit = BenchPlonkCircuit(k, Value.known(2))
 vk = keygen_vk(params, circuit.without_witnesses())
 pk = keygen_pk(params, vk, circuit.without_witnesses())
@@ -194,7 +194,7 @@ class LookupCircuit(EntryCircuit):
 def test_lookup_circuit_is_refused():
     """A witness outside the lookup table is refused by the prover's
     multiset matching (lookup/prover.rs:391-475)."""
-    params = ParamsKZG.setup_host(4, seed=b"lookup")
+    params = ParamsKZG.setup_host(4, seed=b"lookup", device="cpu")
     circuit = LookupCircuit(Value.known(7))
     vk = keygen_vk(params, circuit.without_witnesses())
     pk = keygen_pk(params, vk, circuit.without_witnesses())

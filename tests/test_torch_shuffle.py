@@ -46,7 +46,7 @@ class NoAssertShuffle(SmallShuffle):
 
 @pytest.fixture(scope="module")
 def shuffle():
-    params = ParamsKZG.setup_host(K, seed=b"shuffle-test")
+    params = ParamsKZG.setup_host(K, seed=b"shuffle-test", device="cpu")
     circuit = SmallShuffle.rand(SPEC.p, random.Random(3))
     vk = keygen_vk(params, circuit.without_witnesses())
     pk = keygen_pk(params, vk, circuit.without_witnesses())
