@@ -20,7 +20,7 @@ Phases, one line each, every failure raising (non-zero exit, no result line):
    benches/plonk.rs workload), keygen_vk -> keygen_pk -> create_proof ->
    verify_proof through the real pairing; a proof with one flipped byte is
    rejected.  The kernels' launch counters are zeroed just before and read
-   just after this phase; K1, K2 and K3 must each be > 0;
+   just after this phase (see below);
 7. K4 (lane-tiled Montgomery multiply) against its plain version and against
    K1, n = 4099, 2^18 (the roofline's chained width) and 2^16, BN254 Fr and
    Fq including 0, 1 and p-1: exact equality; then K1, K4, K2 and K3 on the
@@ -60,15 +60,28 @@ Phases, one line each, every failure raising (non-zero exit, no result line):
    version on BN254 G1, Pallas and Vesta at n = 1 and 2^13 (scalars 0, 1 and
    r-1 and the identity point included); K3's ``ec_horner`` at phase 6's
    shapes (c = 5, W = 52, m = 1 and the largest m of a batched commit), at
-   c = 4 and on Vesta.  Exact equality, projective limbs and affine form.
+   c = 4 and on Vesta.  Exact equality, projective limbs and affine form;
+13. the MSM entries of ``ops/msm.py`` (``csrc/msm.cu``): ``msm_digits``,
+   ``ec_window_table`` and ``ec_window_fold`` against their plain versions
+   at the main path's shapes (BN254 n = 2^14 with m = 1
+   and the largest m of phase 6, n = 2^10 (c = 4), n = 1 and 3, Vesta n =
+   2^13): exact equality, the unpacked table limb for limb; ``msm_many`` equal, in
+   projective limbs, to ``ec_horner`` over the plain window sums, and in
+   affine form to the host MSM where n <= 2^10; then one ``msm_many`` at n =
+   2^18, m = 7 (the k = 18 keygen's commit shape) with its time and peak
+   device memory, checked by linearity (column 2 = column 0 + column 1,
+   column 3 = 0).
 
 Phases 6, 10 and 11 each zero the kernels' launch counters (and the calls of
 ``limb.finv`` and ``msm_many``) just before they start and read them just
-after; K1, K2, K3 and the chain entries ``mont_pow`` and ``ec_horner`` must
-each have been launched, and on phase 6 ``mont_pow`` launches must equal the
-``finv`` calls and ``ec_horner`` launches the ``msm_many`` calls.  Then one
-JSON line with every kernel's launches by phase, error, times and bound, and
-as the last line ``{"ok": true, "device": {...}}``.  Times are CUDA-event
+after; K1, ``mont_pow``, ``ec_horner`` and the three MSM entries must each
+have been launched (and K2 in phases 10 and 11, through ``gntt`` and the IPA
+rounds); on each, ``msm_digits``, ``ec_window_table`` and ``ec_horner``
+launches must equal the ``msm_many`` calls and ``ec_window_fold`` launches
+lie between one and three times them, and on phase 6 ``mont_pow`` launches
+must equal the ``finv`` calls and the standalone K2 / K3 launches be 0.  Then
+one JSON line with every kernel's launches by phase, error, times and bound,
+and as the last line ``{"ok": true, "device": {...}}``.  Times are CUDA-event
 times on this card, kernel and plain version measured in the same run.  A
 bound is the larger of the bytes the function must move over 3.35 TB/s and
 its 32-bit multiply-adds (136 per Montgomery product: an 8-word CIOS
@@ -395,7 +408,8 @@ def rejects_flipped(verify, proof: bytes, at: int) -> bool:
         return True
 
 
-PATH_KERNELS = ("mont_mul", "ec_add", "ec_double", "mont_pow", "ec_horner")
+MSM_KERNELS = ("msm_digits", "ec_window_table", "ec_window_fold")
+PATH_KERNELS = ("mont_mul", "mont_pow", "ec_horner") + MSM_KERNELS
 
 
 def start_counting(torch, counted, calls=()) -> None:
@@ -416,6 +430,21 @@ def read_counts(torch, counted, tag: str, calls: dict, names=PATH_KERNELS) -> di
         if launches[name] <= 0:
             raise AssertionError(f"{tag} kernel {name} was not launched")
     return launches
+
+
+def check_msm_launches(tag: str, launches: dict, calls: dict) -> None:
+    """Each msm_many is msm_digits, ec_window_table, 1-3 ec_window_fold
+    passes and ec_horner: 4-6 launches, and nothing else of it is a kernel."""
+    c = calls["msm_many"].calls
+    for name in ("msm_digits", "ec_window_table", "ec_horner"):
+        if launches[name] != c:
+            raise AssertionError(f"{tag} {name} launches {launches[name]} != msm_many calls {c}")
+    if not c <= launches["ec_window_fold"] <= 3 * c:
+        raise AssertionError(f"{tag} ec_window_fold launches {launches['ec_window_fold']} outside "
+                             f"[{c}, {3 * c}] for {c} msm_many calls")
+    per_call = sum(launches[k] for k in MSM_KERNELS + ("ec_horner",)) / c
+    log(f"{tag} msm_many: {c} calls, {per_call:.2f} CUDA launches per call "
+        f"(msm_digits, ec_window_table, ec_window_fold {launches['ec_window_fold']}, ec_horner)")
 
 
 def log_walls(tag: str, walls: dict, phases) -> None:
@@ -672,6 +701,120 @@ def phase_horner(torch, point_mod, ec, cases, rs, dev, peaks) -> dict:
     return {"shapes": shapes, "max_abs_err": err}
 
 
+def msm_operands(torch, point_mod, limb, curve, n: int, m: int, rs, dev):
+    """(affine points, identity first; scalar columns with 0, 1 and r-1
+    rotated through them; (m, 16, n) Montgomery scalars; the points)."""
+    aff = chained_points(curve, n, rs)
+    if n > 1:
+        aff[0] = None
+    cols = []
+    for j in range(m):
+        vals = random_field(curve.scalar, max(n, 3), rs)
+        vals = vals[:n] if n >= 3 else vals[-n:]  # r-1 alone at n = 1
+        cols.append(vals[j % n:] + vals[:j % n])
+    scal = torch.stack([limb.from_ints(curve.scalar, col, dev) for col in cols])
+    return aff, cols, scal, point_mod.from_affine_ints(curve, aff, dev)
+
+
+def phase_msm(torch, point_mod, limb, msm_ops, ec, cases, rs, dev, peaks) -> dict:
+    """The MSM entries against their plain versions at the main path's
+    shapes, (curve, n, m) per case; msm_many against ec_horner over the plain
+    window sums."""
+    from halo2_tpu_torch.curves import host
+
+    res = {name: {"shapes": [], "max_abs_err": 0} for name in MSM_KERNELS}
+    res["msm_many"] = []
+    for curve, n, m in cases:
+        c = 5 if n >= 2048 else 4
+        h, w, npad = 1 << (c - 1), msm_ops.num_windows(c), msm_ops.padded(n)
+        aff, cols, scal, pts = msm_operands(torch, point_mod, limb, curve, n, m, rs, dev)
+        shape = {"curve": curve.name, "n": n, "m": m, "c": c}
+
+        digits = msm_ops.msm_digits(curve, scal, c)
+        ref, plain_ms = timed_once(torch, lambda: msm_ops.msm_digits_plain(curve, scal, c))
+        err = exact(torch, f"msm_digits {shape}", digits, ref)
+        res["msm_digits"]["shapes"].append({
+            **shape, "ms": cuda_ms(lambda: msm_ops.msm_digits(curve, scal, c), 20),
+            "plain_ms": plain_ms,
+            **bound(peaks, 64 * m * n + 2 * m * w * npad, PRODUCT_MULS * m * n)})
+
+        table = msm_ops.ec_window_table(curve, pts, c)
+        plain_table, plain_ms = timed_once(
+            torch, lambda: msm_ops.ec_window_table_plain(curve, pts, c))
+        err = max(err, exact(torch, f"ec_window_table {shape}", msm_ops.table_unpack(table),
+                             plain_table))
+        products = 8 + 12 * (h - 2) if h >= 2 else 0
+        res["ec_window_table"]["shapes"].append({
+            **shape, "ms": cuda_ms(lambda: msm_ops.ec_window_table(curve, pts, c), 10),
+            "plain_ms": plain_ms,
+            **bound(peaks, 192 * n + 96 * n * (h + 1), PRODUCT_MULS * products * n)})
+
+        # the plain fold one column at a time: a column's select is (16, 1, W, npad)
+        def plain_fold():
+            parts = [msm_ops.ec_window_fold_plain(curve, plain_table, digits[j:j + 1])
+                     for j in range(m)]
+            return tuple(torch.cat([p[ci] for p in parts], dim=1) for ci in range(3))
+
+        ref, plain_ms = timed_once(torch, plain_fold)
+        sums = msm_ops.ec_window_fold(curve, table, digits)
+        err = max(err, exact(torch, f"ec_window_fold {shape}", sums, ref))
+        res["ec_window_fold"]["shapes"].append({
+            **shape, "ms": cuda_ms(lambda: msm_ops.ec_window_fold(curve, table, digits), 5),
+            "plain_ms": plain_ms,
+            **bound(peaks, 2 * m * w * npad + 96 * n * (h + 1) + 192 * m * w,
+                    12 * PRODUCT_MULS * m * w * (npad - 1))})
+
+        out = msm_ops.msm_many(curve, scal, pts)
+        err = max(err, exact(torch, f"msm_many {shape}", tuple(out), ec.ec_horner(curve, ref, c)))
+        if n <= 1 << 10 and (point_mod.to_affine_ints(curve, out)
+                             != [host.msm(curve, col, aff) for col in cols]):
+            raise AssertionError(f"msm_many {shape}: differs from the host MSM")
+        fused = cuda_ms(lambda: msm_ops.ec_window_fold(curve, msm_ops.ec_window_table(
+            curve, pts, c), msm_ops.msm_digits(curve, scal, c)), 5)
+        res["msm_many"].append({**shape, "ms_without_horner": fused,
+                                "ms": cuda_ms(lambda: msm_ops.msm_many(curve, scal, pts), 3)})
+        for name in MSM_KERNELS:
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        log(f"[13] MSM entries {shape}: exact match with plain; "
+            f"msm_many == ec_horner(plain sums)"
+            + (" and the host MSM" if n <= 1 << 10 else "") + "; kernel / plain ms: "
+            + ", ".join(f"{k} {res[k]['shapes'][-1]['ms']:.4f} / {res[k]['shapes'][-1]['plain_ms']:.1f}"
+                        for k in MSM_KERNELS)
+            + f"; digits + table + fold {fused:.4f} ms, msm_many {res['msm_many'][-1]['ms']:.4f} ms")
+    return res
+
+
+def phase_msm_k18(torch, point_mod, limb, msm_ops, params, rs, dev) -> dict:
+    """One msm_many at n = 2^18, m = 7 on the kernel path: phase 6's k = 14
+    SRS points 16 times over, random scalars below p made on the host in
+    numpy; column 2 = column 0 + column 1, column 3 = 0."""
+    from halo2_tpu_torch.curves import host
+    from halo2_tpu_torch.curves.spec import BN254_G1
+
+    curve, n, m = BN254_G1, 1 << 18, 7
+    fr = curve.scalar
+    pts = point_mod.Point(*(torch.cat([t] * (n // t.shape[1]), dim=1) for t in params.g))
+    raw = rs.integers(0, 1 << 16, size=(m, 16, n), dtype=np.int64)
+    raw[:, 15] %= fr.p >> 240  # below p: a valid Montgomery form
+    scal = torch.from_numpy(raw.astype(np.int32)).to(dev)
+    scal[2] = limb.fadd(fr, scal[0], scal[1])
+    scal[3] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out, ms = timed_once(torch, lambda: msm_ops.msm_many(curve, scal, pts))
+    peak = torch.cuda.max_memory_allocated()
+    aff = point_mod.to_affine_ints(curve, out)
+    if aff[2] != host.add(curve, aff[0], aff[1]) or aff[3] is not None:
+        raise AssertionError("msm_many n=2^18 m=7: not linear in the scalars")
+    res = {"n": n, "m": m, "ms": ms, "peak_gib": peak / 2**30,
+           "peak_above_operands_gib": (peak - before) / 2**30}
+    log(f"[13] msm_many n=2^18 m=7: {ms:.2f} ms (one call, CUDA events); peak device memory "
+        f"{res['peak_gib']:.3f} GiB, {res['peak_above_operands_gib']:.3f} GiB above the "
+        f"operands; column 0 + column 1 == column 2, column 3 the identity")
+    return res
+
+
 def main() -> None:
     import torch
 
@@ -779,6 +922,8 @@ def main() -> None:
         "mont_pow": mont_mul_mod.mont_pow, "ec_scalar_mul": ec.ec_scalar_mul,
         "ec_horner": ec.ec_horner, "mont_mul_tiled": mont_mul_mod.mont_mul_tiled,
         "int_muladd": ic.int_muladd_chain, "int_addmask": ic.int_addmask_chain,
+        "msm_digits": msm_ops.msm_digits, "ec_window_table": msm_ops.ec_window_table,
+        "ec_window_fold": msm_ops.ec_window_fold,
     }
     os.environ["HALO2_TPU_PROFILE"] = "1"
     start_counting(torch, counted, calls.values())
@@ -800,6 +945,10 @@ def main() -> None:
                                  f"{calls[fn].calls}: a chain did not run as one launch")
     log(f"[6] one launch per chain: mont_pow {launches['mont_pow']} = finv calls, "
         f"ec_horner {launches['ec_horner']} = msm_many calls (largest m {commit_m})")
+    check_msm_launches("[6]", launches, calls)
+    if launches["ec_add"] or launches["ec_double"]:
+        raise AssertionError(f"[6] standalone K2 / K3 launched ({launches['ec_add']}, "
+                             f"{launches['ec_double']}): every MSM add belongs to its entries")
     if ok is not True:
         raise AssertionError(f"k={k} proof rejected")
     if not rejects_flipped(verify, proof, len(proof) // 2):
@@ -854,12 +1003,15 @@ def main() -> None:
     start_counting(torch, counted, calls.values())
     phase_pins(torch, dev)
     phase_lookup(torch, profiling, params, dev)
-    launches10 = read_counts(torch, counted, "[10]", calls)
+    launches10 = read_counts(torch, counted, "[10]", calls, PATH_KERNELS + ("ec_add",))
+    check_msm_launches("[10]", launches10, calls)
 
     # ---- 11: IPA at k=14 ---------------------------------------------------------
     start_counting(torch, counted, calls.values())
     phase_ipa(torch, profiling, dev)
-    launches11 = read_counts(torch, counted, "[11]", calls, PATH_KERNELS + ("ec_scalar_mul",))
+    launches11 = read_counts(torch, counted, "[11]", calls,
+                             PATH_KERNELS + ("ec_add", "ec_scalar_mul"))
+    check_msm_launches("[11]", launches11, calls)
 
     # ---- 12: the chains against their plain versions -------------------------------
     t0 = time.perf_counter()
@@ -874,8 +1026,17 @@ def main() -> None:
     log("[12] SASS instructions per kernel: " + ", ".join(
         f"{k} {len(roofline.kernel_sass(funcs, k))}"
         for k in ("mont_pow_kernel", "ec_scalar_mul_kernel", "ec_horner_kernel",
-                  "ec_add_kernel", "ec_double_kernel")))
+                  "ec_add_kernel", "ec_double_kernel", "msm_digits_kernel",
+                  "ec_window_table_kernel")))
     log(f"[12] the chains: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 13: the MSM entries against their plain versions; n = 2^18 -----------
+    t0 = time.perf_counter()
+    msm_res = phase_msm(torch, point_mod, limb, msm_ops, ec, [
+        (BN254_G1, 1 << 14, 1), (BN254_G1, 1 << 14, commit_m), (BN254_G1, 1 << 10, 1),
+        (BN254_G1, 1, 1), (BN254_G1, 3, 2), (VESTA, 1 << 13, 1)], rs, dev, peaks)
+    msm_res["k18"] = phase_msm_k18(torch, point_mod, limb, msm_ops, params, rs, dev)
+    log(f"[13] the MSM entries: {time.perf_counter() - t0:.1f} s")
 
     def main_path(name):
         """A prove-path kernel's launches in phases 6, 10 and 11."""
@@ -922,6 +1083,16 @@ def main() -> None:
         {"name": "ec_horner", "route": "cuda", "source": "halo2_tpu_torch/csrc/ec.cu",
          "replaces": "halo2_tpu/curves/pallas_ec.py:181", **main_path("ec_horner"),
          **chain(horners)},
+        {"name": "msm_digits", "route": "cuda", "source": "halo2_tpu_torch/csrc/msm.cu",
+         "replaces": "halo2_tpu/fields/pallas_kernels.py:129", **main_path("msm_digits"),
+         **chain(msm_res["msm_digits"])},
+        {"name": "ec_window_table", "route": "cuda", "source": "halo2_tpu_torch/csrc/msm.cu",
+         "replaces": "halo2_tpu/curves/pallas_ec.py:161", **main_path("ec_window_table"),
+         **chain(msm_res["ec_window_table"])},
+        {"name": "ec_window_fold", "route": "cuda", "source": "halo2_tpu_torch/csrc/msm.cu",
+         "replaces": "halo2_tpu/curves/pallas_ec.py:161", **main_path("ec_window_fold"),
+         **chain(msm_res["ec_window_fold"]), "msm_many": msm_res["msm_many"],
+         "msm_many_n2e18_m7": msm_res["k18"]},
         {"name": "mont_mul_tiled", "route": "cuda",
          "source": "halo2_tpu_torch/csrc/mont_mul_tiled.cu",
          "replaces": "halo2_tpu/fields/pallas_kernels.py:80", **roofline_path("mont_mul_tiled"),

@@ -21,7 +21,7 @@ import time
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-_SOURCES = ("mont_mul.cu", "ec.cu", "mont_mul_tiled.cu", "roofline.cu")
+_SOURCES = ("mont_mul.cu", "ec.cu", "msm.cu", "mont_mul_tiled.cu", "roofline.cu")
 _HEADERS = ("field.cuh", "ec.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,6 +43,9 @@ _SIGNATURES = {
     "h2_ec_double": [_P] * 6 + [_I64, _P, _U32, _U32, _P],
     "h2_ec_scalar_mul": [_P] * 7 + [_I64, _P, _U32, _U32, _P, _P],
     "h2_ec_horner": [_P] * 6 + [_I64, _I64, _I64, _P, _U32, _U32, _P],
+    "h2_msm_digits": [_P, _P] + [_I64] * 7 + [_P, _U32, _P],
+    "h2_ec_window_table": [_P] * 4 + [_I64] * 3 + [_P, _U32, _U32, _P, _P],
+    "h2_ec_window_fold": [_P] * 6 + [_I64] * 5 + [_P, _U32, _U32, _P, _P],
     "h2_mont_mul_tiled": [_P, _P, _P, ctypes.c_int64, _P, ctypes.c_uint32, _P],
     "h2_int_muladd": [_P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P],
     "h2_int_addmask": [_P, _P, ctypes.c_int64, ctypes.c_int, _P],

@@ -112,7 +112,7 @@ def ec_double_plain(curve: CurveSpec, p):
 
 
 @functools.lru_cache(maxsize=None)
-def _launch_args(curve: CurveSpec):
+def launch_args(curve: CurveSpec):
     """(p words, n0, 3b, R mod p words) for the base field, built once per curve."""
     words, n0 = _cuda.modulus_args(curve.base)
     return words, n0, 3 * curve.b, _cuda.words_arg(curve.base.r)
@@ -128,7 +128,7 @@ def ec_add(curve: CurveSpec, p, q):
     if n == 0:
         return out
     lib = _cuda.library()
-    words, n0, b3, _ = _launch_args(curve)
+    words, n0, b3, _ = launch_args(curve)
     with torch.cuda.device(coords[0].device):
         rc = lib.h2_ec_add(
             *[c.data_ptr() for c in coords + out], n, words, n0, b3,
@@ -149,7 +149,7 @@ def ec_double(curve: CurveSpec, p):
     if n == 0:
         return out
     lib = _cuda.library()
-    words, n0, b3, _ = _launch_args(curve)
+    words, n0, b3, _ = launch_args(curve)
     with torch.cuda.device(coords[0].device):
         rc = lib.h2_ec_double(
             *[c.data_ptr() for c in coords + out], n, words, n0, b3,
@@ -197,7 +197,7 @@ def ec_scalar_mul(curve: CurveSpec, scalars, p):
     if n == 0:
         return out
     lib = _cuda.library()
-    words, n0, b3, one = _launch_args(curve)
+    words, n0, b3, one = launch_args(curve)
     with torch.cuda.device(scalars.device):
         rc = lib.h2_ec_scalar_mul(
             *[c.data_ptr() for c in coords + out], n, words, n0, b3, one,
@@ -242,7 +242,7 @@ def ec_horner(curve: CurveSpec, sums, c: int):
     if m == 0:
         return out
     lib = _cuda.library()
-    words, n0, b3, _ = _launch_args(curve)
+    words, n0, b3, _ = launch_args(curve)
     with torch.cuda.device(flat[0].device):
         rc = lib.h2_ec_horner(
             *[t.data_ptr() for t in flat + out], m, w, c, words, n0, b3,

@@ -173,15 +173,21 @@ def test_batch_scalar_mul_runs_one_ec_scalar_mul(monkeypatch):
 
 def test_msm_many_folds_its_windows_in_one_ec_horner(monkeypatch):
     curve = BN254_G1
-    spies = {name: _Spy(getattr(ec_kernels, name)) for name in ("ec_horner", "ec_double")}
+    spies = {name: _Spy(getattr(ec_kernels, name)) for name in ("ec_horner", "ec_add", "ec_double")}
     for name, spy in spies.items():
         monkeypatch.setattr(ec_kernels, name, spy)
+    entries = {name: _Spy(getattr(msm_ops, name))
+               for name in ("msm_digits", "ec_window_table", "ec_window_fold")}
+    for name, spy in entries.items():
+        monkeypatch.setattr(msm_ops, name, spy)
     pts = [host.mul(curve, host.generator(curve), k) for k in (2, 3, 4)]
     scal = torch.stack([limb.from_ints(curve.scalar, col, device="cpu")
                         for col in ([1, 2, 3], [4, 5, 6])])
     out = msm_ops.msm_many(curve, scal, point.from_affine_ints(curve, pts, device="cpu"), 4)
-    # one Horner launch; the only double left is the window table's T_2 = 2P
-    assert [len(s.calls) for s in spies.values()] == [1, 1]
+    # each MSM entry once and one Horner launch; no standalone K2 / K3: the
+    # table's double and adds and the fold's adds run inside the entries
+    assert [len(s.calls) for s in entries.values()] == [1, 1, 1]
+    assert [len(s.calls) for s in spies.values()] == [1, 0, 0]
     assert spies["ec_horner"].calls[0][2] == 4
     assert point.to_affine_ints(curve, out) == [
         host.msm(curve, col, pts) for col in ([1, 2, 3], [4, 5, 6])]

@@ -8,7 +8,9 @@ to the plain versions, exactly, on all four fields and all three curves, K1
 on the Pasta fields at n = 2^16 and K2/K3 on Pallas and Vesta at n = 2^14;
 ``mont_pow``, ``ec_scalar_mul`` and ``ec_horner`` on every field or curve;
 ``batch_scalar_mul`` and the device KZG setup, which run on the chains,
-against the host.
+against the host; the MSM entries ``msm_digits``, ``ec_window_table`` and
+``ec_window_fold`` (``csrc/msm.cu``) against theirs, and ``msm_many`` on the
+card through them alone.
 This file imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda -q
@@ -372,3 +374,113 @@ def test_chain_wrappers_check_operands_and_count_launches(dev):
     assert tuple(x - y for x, y in zip(after, before)) == (1, 1, 1)
     assert mont_pow(f, a[:, :0].contiguous(), 5).shape == (16, 0)
     assert mont_pow.launches == after[0]  # nothing to launch for n = 0
+
+
+def _msm_operands(curve, n: int, m: int, seed: int, dev):
+    """(affine points with the identity first, scalar columns with 0, 1 and
+    r-1 first, (m, 16, n) Montgomery scalars, the points on the card)."""
+    g = host.generator(curve)
+    r, step = (host.mul(curve, g, int(v))
+               for v in np.random.default_rng(seed).integers(1, 1 << 62, size=2))
+    aff = [r]
+    for _ in range(n - 1):
+        aff.append(host.add(curve, aff[-1], step))
+    if n > 1:
+        aff[0] = None
+    cols = [_values(curve.scalar.p, seed + 1 + i, n) for i in range(m)]
+    cols = [col[i % n:] + col[:i % n] for i, col in enumerate(cols)]
+    scal = torch.stack([limb.from_ints(curve.scalar, col, dev) for col in cols])
+    return aff, cols, scal, point.from_affine_ints(curve, aff, dev)
+
+
+@pytest.mark.parametrize("name", [c.name for c in ALL_CURVES])
+@pytest.mark.parametrize("c", [1, 4, 5, 8])
+@pytest.mark.parametrize("n", [1, 3, 1000])
+def test_msm_digits_kernel_matches_plain(dev, name, c, n):
+    (curve,) = [cv for cv in ALL_CURVES if cv.name == name]
+    _, _, scal, _ = _msm_operands(curve, n, 2, 40, dev)
+    want = msm_ops.msm_digits_plain(curve, scal, c)
+    assert torch.equal(msm_ops.msm_digits(curve, scal, c), want)
+    wide = torch.cat([scal, scal], dim=2)  # column slices, as the IPA rounds pass them
+    assert torch.equal(msm_ops.msm_digits(curve, wide[:, :, n:], c), want)
+
+
+@pytest.mark.parametrize("name", [c.name for c in ALL_CURVES])
+@pytest.mark.parametrize("c", [1, 2, 4, 5, 8])
+def test_ec_window_table_kernel_matches_plain(dev, name, c):
+    (curve,) = [cv for cv in ALL_CURVES if cv.name == name]
+    ps, _ = _points(curve, 41)
+    p = _projective(curve, ps, dev)
+    want = msm_ops.ec_window_table_plain(curve, p, c)
+    got = msm_ops.ec_window_table(curve, p, c)
+    assert got.shape == (40, (1 << (c - 1)) + 1, msm_ops.RECORD)
+    for a, b in zip(msm_ops.table_unpack(got), want):
+        assert torch.equal(a, b)
+    wide = tuple(torch.cat([t, t], dim=1) for t in p)
+    assert torch.equal(msm_ops.ec_window_table(curve, tuple(t[:, 40:] for t in wide), c), got)
+
+
+@pytest.mark.parametrize("name", [c.name for c in ALL_CURVES])
+@pytest.mark.parametrize("n,m,c", [(1, 1, 4), (1, 3, 5), (5, 2, 4), (300, 3, 5), (2048, 2, 5),
+                                   (20000, 1, 5)])
+def test_ec_window_fold_kernel_matches_plain(dev, name, n, m, c):
+    (curve,) = [cv for cv in ALL_CURVES if cv.name == name]
+    _, _, scal, pts = _msm_operands(curve, n, m, 42, dev)
+    digits = msm_ops.msm_digits_plain(curve, scal, c)
+    table = msm_ops.ec_window_table(curve, pts, c)
+    before = msm_ops.ec_window_fold.launches
+    got = msm_ops.ec_window_fold(curve, table, digits)
+    npad, passes = msm_ops.padded(n), 0
+    while npad > 1:
+        npad //= min(msm_ops.FOLD_BLOCK, npad)
+        passes += 1
+    assert msm_ops.ec_window_fold.launches - before == max(passes, 1)
+    plain = msm_ops.ec_window_fold_plain(curve, msm_ops.ec_window_table_plain(curve, pts, c),
+                                         digits)
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+
+
+def test_msm_many_on_the_card_runs_the_msm_entries_only(dev):
+    curve = BN254_G1
+    aff, cols, scal, pts = _msm_operands(curve, 37, 3, 43, dev)
+    counted = (msm_ops.msm_digits, msm_ops.ec_window_table, msm_ops.ec_window_fold,
+               ec.ec_horner, ec.ec_add, ec.ec_double, mont_mul)
+    before = [fn.launches for fn in counted]
+    got = msm_ops.msm_many(curve, scal, pts)
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [1, 1, 1, 1, 0, 0, 0]
+    want = msm_ops.msm_many(curve, scal.cpu(), point.Point(*(t.cpu() for t in pts)))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert point.to_affine_ints(curve, got) == [host.msm(curve, col, aff) for col in cols]
+
+
+def test_msm_entries_check_operands_and_raise_on_a_refused_launch(dev):
+    curve = BN254_G1
+    _, _, scal, pts = _msm_operands(curve, 8, 1, 44, dev)
+    with pytest.raises(ValueError, match="1 <= c <= 8"):
+        msm_ops.msm_digits(curve, scal, 9)
+    with pytest.raises(ValueError, match="int32"):
+        msm_ops.msm_digits(curve, scal.long(), 4)
+    with pytest.raises(ValueError, match="1 <= c <= 8"):
+        msm_ops.ec_window_table(curve, pts, 0)
+    digits = msm_ops.msm_digits(curve, scal, 4)
+    table = msm_ops.ec_window_table(curve, pts, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        msm_ops.ec_window_fold(curve, table.cpu(), digits)
+    with pytest.raises(ValueError, match="records"):  # the plain table is for CPU digits
+        msm_ops.ec_window_fold(curve, msm_ops.ec_window_table_plain(curve, pts, 4), digits)
+    with pytest.raises(ValueError, match="fit"):
+        msm_ops.ec_window_fold(curve, table[:3].contiguous(), digits)
+    with pytest.raises(ValueError, match="fit"):  # a c = 5 table for c = 4 digits
+        msm_ops.ec_window_fold(curve, msm_ops.ec_window_table(curve, pts, 5), digits)
+    # the C entry refuses a launch it cannot run (more threads than its 128)
+    # and the wrapper's check raises on its error code
+    lib = _cuda.library()
+    words, n0, b3, one = ec.launch_args(curve)
+    out = [torch.empty((16, 52), dtype=torch.int32, device=dev) for _ in range(3)]
+    rc = lib.h2_ec_window_fold(digits.data_ptr(), table.data_ptr(), None,
+                               *[o.data_ptr() for o in out], 65, 256, 8, 9, 256,
+                               words, n0, b3, one, _cuda.stream_ptr(table))
+    with pytest.raises(RuntimeError, match="cudaError"):
+        _cuda.check(rc, "ec_window_fold")
