@@ -70,9 +70,18 @@ Phases, one line each, every failure raising (non-zero exit, no result line):
    affine form to the host MSM where n <= 2^10; then one ``msm_many`` at n =
    2^18, m = 7 (the k = 18 keygen's commit shape) with its time and peak
    device memory, checked by linearity (column 2 = column 0 + column 1,
-   column 3 = 0).
+   column 3 = 0);
+14. the entry points and key I/O: ``entry.entry()``'s k=10 prover round and
+   ``entry.dryrun_full_proof()`` (the k=6 proof equal to its pin); phase 6's
+   k=14 vk and pk through ``plonk.serde`` in all three formats (the vk's
+   ``transcript_repr`` equal, the read pk's proof with the same rng
+   byte-equal to phase 6's, write and read walls printed); phase 6's SRS
+   through ``ParamsKZG.write`` / ``read`` in every format (g and g_lagrange
+   equal, limb for limb) and a RawBytes file with one flipped coordinate
+   rejected; ``bench/full.py``'s MSM, NTT and coset legs and a prove leg at
+   k=10, their metric names checked and every value positive.
 
-Phases 6, 10 and 11 each zero the kernels' launch counters (and the calls of
+Phases 6, 10, 11 and 14 each zero the kernels' launch counters (and the calls of
 ``limb.finv`` and ``msm_many``) just before they start and read them just
 after; K1, ``mont_pow``, ``ec_horner`` and the three MSM entries must each
 have been launched (and K2 in phases 10 and 11, through ``gntt`` and the IPA
@@ -455,7 +464,7 @@ def log_walls(tag: str, walls: dict, phases) -> None:
 
 
 def keygen_and_prove(torch, profiling, params, circuit, prove):
-    """keygen_vk + keygen_pk, then a cold and a warm prove; (vk, proof,
+    """keygen_vk + keygen_pk, then a cold and a warm prove; (vk, pk, proof,
     walls, the warm prove's synced phases)."""
     from halo2_tpu_torch.plonk import keygen_pk, keygen_vk
 
@@ -471,7 +480,7 @@ def keygen_and_prove(torch, profiling, params, circuit, prove):
         proof = prove(pk)
         torch.cuda.synchronize()
         walls[run] = time.perf_counter() - t0
-    return vk, proof, walls, profiling.report(reset=True)
+    return vk, pk, proof, walls, profiling.report(reset=True)
 
 
 def phase_pins(torch, dev) -> None:
@@ -532,7 +541,7 @@ def phase_lookup(torch, profiling, params, dev) -> None:
     assert params.s is None  # verify runs the real pairing
     spec = BN254_G1.scalar
     circuit = LookupRangeCircuit(params.k)
-    vk, proof, walls, phases = keygen_and_prove(torch, profiling, params, circuit, lambda pk: (
+    vk, _, proof, walls, phases = keygen_and_prove(torch, profiling, params, circuit, lambda pk: (
         create_proof(params, pk, [circuit], [[]], FieldRng(spec, b"lookup-range-rng"),
                      Blake2bTranscript(BN254_G1), shplonk.shplonk_create_proof)))
 
@@ -574,7 +583,7 @@ def phase_ipa(torch, profiling, dev, k: int = 14) -> None:
     log(f"[11] k={k} g_to_lagrange on the card {srs['ipa setup: g_to_lagrange']:.2f} s; "
         f"ParamsIPA.setup {time.perf_counter() - t0:.2f} s")
     circuit = BenchPlonkCircuit(k, Value.known(2))
-    vk, proof, walls, phases = keygen_and_prove(torch, profiling, params, circuit, lambda pk: (
+    vk, _, proof, walls, phases = keygen_and_prove(torch, profiling, params, circuit, lambda pk: (
         create_proof(params, pk, [circuit], [[]], FieldRng(spec, b"bench-ipa-rng"),
                      Blake2bTranscript(VESTA), ipa_create_proof, query_instance=True)))
 
@@ -725,7 +734,7 @@ def phase_msm(torch, point_mod, limb, msm_ops, ec, cases, rs, dev, peaks) -> dic
     res = {name: {"shapes": [], "max_abs_err": 0} for name in MSM_KERNELS}
     res["msm_many"] = []
     for curve, n, m in cases:
-        c = 5 if n >= 2048 else 4
+        c = msm_ops.choose_window(n)
         h, w, npad = 1 << (c - 1), msm_ops.num_windows(c), msm_ops.padded(n)
         aff, cols, scal, pts = msm_operands(torch, point_mod, limb, curve, n, m, rs, dev)
         shape = {"curve": curve.name, "n": n, "m": m, "c": c}
@@ -813,6 +822,115 @@ def phase_msm_k18(torch, point_mod, limb, msm_ops, params, rs, dev) -> dict:
         f"{res['peak_gib']:.3f} GiB, {res['peak_above_operands_gib']:.3f} GiB above the "
         f"operands; column 0 + column 1 == column 2, column 3 the identity")
     return res
+
+
+def phase_entry(torch, dev) -> None:
+    """entry()'s prover round at k=10, and the k=6 dry run against its pin."""
+    from halo2_tpu_torch import entry
+
+    t0 = time.perf_counter()
+    fn, args = entry.entry(dev)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    if [tuple(o.shape) for o in out] != [(16,), (16,)] or not all(o.is_cuda for o in out):
+        raise AssertionError(f"entry(): unexpected outputs {[(o.shape, o.device) for o in out]}")
+    if not all(bool(((o >= 0) & (o < 1 << 16)).all()) for o in out):
+        raise AssertionError("entry(): an output limb lies outside [0, 2^16)")
+    log(f"[14] entry() k=10 prover round on the card: outputs (16,) x 2; "
+        f"{time.perf_counter() - t0:.2f} s with the device SRS")
+    entry.dryrun_full_proof(dev, log=lambda msg: log("[14] " + msg))
+
+
+def phase_serde(torch, params, vk, pk, proof, prove, circuit_cls, dev) -> dict:
+    """Phase 6's k=14 vk and pk through every SerdeFormat: the vk's
+    transcript_repr and the read pk's proof (same rng) must equal the
+    originals; then the SRS through every format, a flipped RawBytes
+    coordinate rejected."""
+    import tempfile
+
+    from halo2_tpu_torch.bench.full import timed
+    from halo2_tpu_torch.curves.spec import BN254_G1
+    from halo2_tpu_torch.plonk import serde
+    from halo2_tpu_torch.poly.kzg import ParamsKZG
+
+    walls = {}
+    for fmt in serde.SerdeFormat:
+        name = fmt.name.lower()
+        vk_bytes = serde.vk_to_bytes(vk, BN254_G1, fmt)
+        if serde.vk_from_bytes(vk_bytes, BN254_G1, circuit_cls, fmt=fmt,
+                               device=dev).transcript_repr != vk.transcript_repr:
+            raise AssertionError(f"[14] vk read back in {fmt.name} has another transcript_repr")
+        data, walls[f"pk_write_{name}"] = timed(
+            lambda: serde.pk_to_bytes(pk, BN254_G1, fmt), dev)
+        back, walls[f"pk_read_{name}"] = timed(lambda: serde.pk_from_bytes(
+            data, BN254_G1, circuit_cls, fmt=fmt, device=dev), dev)
+        if not back.l0.values.is_cuda or back.vk.transcript_repr != vk.transcript_repr:
+            raise AssertionError(f"[14] pk read back in {fmt.name}: wrong device or vk")
+        if prove(back) != proof:
+            raise AssertionError(f"[14] the pk read back in {fmt.name} proves other bytes")
+        log(f"[14] k={params.k} pk {fmt.name}: {len(data)} B, write "
+            f"{walls[f'pk_write_{name}']:.3f} s, read {walls[f'pk_read_{name}']:.3f} s; "
+            f"vk transcript_repr equal; the read pk's proof == the original's")
+        del data, back
+    # an unchecked read keeps v mod p, also for v >= p (K1 by R mod p)
+    fr = BN254_G1.scalar
+    over = [fr.p, fr.p + 5, (1 << 256) - 1, 7]
+    data = b"".join(v.to_bytes(32, "little") for v in over)
+    got = serde.scalars_from_bytes(fr, data, len(over), serde.SerdeFormat.RAW_BYTES_UNCHECKED, dev)
+    ref = serde.scalars_from_bytes(fr, data, len(over), serde.SerdeFormat.RAW_BYTES_UNCHECKED,
+                                   "cpu")
+    exact(torch, "unchecked scalar read", got.cpu(), ref)
+    if serde.scalars_to_bytes(fr, got, serde.SerdeFormat.RAW_BYTES_UNCHECKED) != b"".join(
+            (v % fr.p).to_bytes(32, "little") for v in over):
+        raise AssertionError("[14] an unchecked scalar read did not reduce mod p")
+    with tempfile.TemporaryDirectory() as tmp:
+        for fmt in serde.SerdeFormat:
+            name = fmt.name.lower()
+            path = os.path.join(tmp, f"srs_{name}.bin")
+            _, walls[f"srs_write_{name}"] = timed(lambda: params.write(path, fmt), dev)
+            back, walls[f"srs_read_{name}"] = timed(
+                lambda: ParamsKZG.read(path, fmt, device=dev), dev)
+            for part in ("g", "g_lagrange"):
+                if not all(torch.equal(a, b) for a, b in zip(getattr(back, part),
+                                                             getattr(params, part))):
+                    raise AssertionError(f"[14] ParamsKZG {part} read back in {fmt.name} differs")
+            if (back.g2, back.s_g2) != (params.g2, params.s_g2):
+                raise AssertionError(f"[14] ParamsKZG G2 points read back in {fmt.name} differ")
+            log(f"[14] k={params.k} ParamsKZG {fmt.name}: {os.path.getsize(path)} B, write "
+                f"{walls[f'srs_write_{name}']:.3f} s, read {walls[f'srs_read_{name}']:.3f} s; "
+                f"g and g_lagrange equal, limbs too")
+        path = os.path.join(tmp, "srs_raw_bytes.bin")
+        with open(path, "r+b") as f:
+            f.seek(4 + 64 * 1000)  # the x of g[1000]
+            byte = f.read(1)
+            f.seek(4 + 64 * 1000)
+            f.write(bytes([byte[0] ^ 1]))
+        try:
+            ParamsKZG.read(path, serde.SerdeFormat.RAW_BYTES, device=dev)
+        except ValueError as exc:
+            log(f"[14] RawBytes SRS with a flipped coordinate rejected: {exc}")
+        else:
+            raise AssertionError("[14] RawBytes SRS read accepted a flipped coordinate")
+    return walls
+
+
+def phase_bench(torch, dev, k: int = 10) -> list:
+    """bench/full.py's legs at k=10: names and values checked."""
+    import tempfile
+
+    from halo2_tpu_torch.bench import full
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lines = [full.bench_msm(k, 5, dev), full.bench_ntt(k, 20, dev),
+                 full.bench_coset_ext(k, 10, dev)] + full.bench_prove(k, 2, tmp, dev)
+    names = {line["metric"] for line in lines}
+    want = {f"{leg}_k{k}" for leg in ("msm_bn254_points_per_sec", "ntt_bn254_points_per_sec",
+                                      "coset_ext_points_per_sec", "keygen_wall_s",
+                                      "prove_wall_s", "verify_wall_s")}
+    if not want <= names or not all(line["value"] > 0 for line in lines):
+        raise AssertionError(f"[14] bench/full.py at k={k}: names {sorted(names)}")
+    log(f"[14] bench/full.py k={k}: {len(lines)} metrics, every value > 0")
+    return lines
 
 
 def main() -> None:
@@ -927,9 +1045,11 @@ def main() -> None:
     }
     os.environ["HALO2_TPU_PROFILE"] = "1"
     start_counting(torch, counted, calls.values())
-    vk, proof, walls, phases = keygen_and_prove(torch, profiling, params, bench, lambda pk: (
-        create_proof(params, pk, [bench], [[]], FieldRng(spec, b"bench-prove-rng"),
-                     Blake2bTranscript(BN254_G1), gwc_create_proof)))
+    def prove6(key):
+        return create_proof(params, key, [bench], [[]], FieldRng(spec, b"bench-prove-rng"),
+                            Blake2bTranscript(BN254_G1), gwc_create_proof)
+
+    vk, pk, proof, walls, phases = keygen_and_prove(torch, profiling, params, bench, prove6)
 
     def verify(pr):
         return verify_proof(params, vk, [[]], Blake2bTranscript(BN254_G1, pr), gwc_verify_proof)
@@ -1038,13 +1158,25 @@ def main() -> None:
     msm_res["k18"] = phase_msm_k18(torch, point_mod, limb, msm_ops, params, rs, dev)
     log(f"[13] the MSM entries: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 14: the entry points, serde, and the bench's legs at k=10 ------------
+    t0 = time.perf_counter()
+    start_counting(torch, counted, calls.values())
+    phase_entry(torch, dev)
+    serde_walls = phase_serde(torch, params, vk, pk, proof, prove6, BenchPlonkCircuit, dev)
+    bench_lines = phase_bench(torch, dev)
+    launches14 = read_counts(torch, counted, "[14]", calls)
+    check_msm_launches("[14]", launches14, calls)
+    log(f"[14] entry, serde and bench: {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"serde_walls_s": serde_walls, "bench_k10": bench_lines}))
+
     def main_path(name):
-        """A prove-path kernel's launches in phases 6, 10 and 11."""
-        by_phase = {"6": launches[name], "10": launches10[name], "11": launches11[name]}
+        """A prove-path kernel's launches in phases 6, 10, 11 and 14."""
+        by_phase = {"6": launches[name], "10": launches10[name], "11": launches11[name],
+                    "14": launches14[name]}
         return {"launches": sum(by_phase.values()), "launches_by_phase": by_phase}
 
     def roofline_path(name):
-        """A roofline kernel's launches (phase 8); phases 6, 10 and 11 run none."""
+        """A roofline kernel's launches (phase 8); phases 6, 10, 11 and 14 run none."""
         return {"launches": roof_launches[name],
                 "launches_by_phase": {**main_path(name)["launches_by_phase"],
                                       "8": roof_launches[name]}}

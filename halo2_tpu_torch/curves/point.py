@@ -41,6 +41,15 @@ def identity(spec: CurveSpec, shape=(), device=None) -> Point:
     return Point(zero, one.expand((NLIMBS,) + shape).clone(), zero.clone())
 
 
+def generator(spec: CurveSpec, device=None) -> Point:
+    """The curve's generator as three unbatched (16,) limb vectors, z = 1."""
+    f = spec.base
+    return Point(
+        limb.from_int(f, spec.gx, device), limb.from_int(f, spec.gy, device),
+        limb.from_int(f, 1, device),
+    )
+
+
 def from_affine_ints(spec: CurveSpec, coords, device=None) -> Point:
     """List of (x, y) canonical-int pairs (or None for identity) -> batched Point."""
     f = spec.base
@@ -94,6 +103,10 @@ def ec_select(cond, p: Point, q: Point) -> Point:
         limb.select(cond, p.y, q.y),
         limb.select(cond, p.z, q.z),
     )
+
+
+def is_identity(p: Point):
+    return limb.is_zero(p.z)
 
 
 def batch_normalize(spec: CurveSpec, p: Point) -> Point:

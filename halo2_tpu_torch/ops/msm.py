@@ -316,6 +316,11 @@ ec_window_fold.launches = 0
 # the MSM
 # ---------------------------------------------------------------------------
 
+def choose_window(n: int) -> int:
+    """The window width ``msm_many`` takes for n points."""
+    return 5 if n >= 2048 else 4
+
+
 def msm_many(curve: CurveSpec, scalars_mont, points: Point, c: int = 0) -> Point:
     """m MSMs over one shared base set, in one batched pass.
 
@@ -326,7 +331,7 @@ def msm_many(curve: CurveSpec, scalars_mont, points: Point, c: int = 0) -> Point
     """
     n = scalars_mont.shape[2]
     if c == 0:
-        c = 5 if n >= 2048 else 4
+        c = choose_window(n)
     digits = msm_digits(curve, scalars_mont, c)
     table = ec_window_table(curve, points, c)
     sums = ec_window_fold(curve, table, digits)

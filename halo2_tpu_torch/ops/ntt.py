@@ -1,6 +1,9 @@
-"""Six-step NTT over multi-limb field tensors.
+"""NTTs over multi-limb field tensors: six-step and radix-2 butterfly.
 
-Port of the six-step path of the JAX package's ``ops/ntt.py``.  The transform
+Port of the JAX package's ``ops/ntt.py``: the six-step path, which the
+domain's transforms take, and the butterfly ``ntt`` / ``intt``, which the
+bench times as the JAX bench does (``ntt_batched`` feeds only the multi-device
+code and is not ported).  The six-step transform
 computes the standard DFT out[i] = sum_j a[j] * omega^(i*j) of a (16, 2^k)
 Montgomery limb tensor, as the reference's ``best_fft`` does
 (arithmetic.rs:171-274).  With n = n1*n2:
@@ -46,6 +49,36 @@ def power_table(spec: FieldSpec, base: int, n: int, device=None) -> torch.Tensor
         table = torch.cat([table, limb.fmul(spec, table, s)], dim=1)
         step = step * step % spec.p
     return table[:, :n]
+
+
+def ntt(spec: FieldSpec, a, twiddles, k: int):
+    """DFT of a (16, 2^k) limb tensor by the radix-2 butterfly network.
+
+    The JAX package's ``ntt``: bit-reverse the input, then k decimation-in-
+    time stages.  Stage s pairs positions lo and lo + 2^(s-1) inside each
+    block of 2^s and multiplies the upper one by the twiddle
+    ``twiddles[off << (k - s)]`` (K1); ``twiddles`` is the (16, 2^(k-1))
+    table of powers of the domain generator (:func:`power_table`).  A
+    block's pairs are a reshape here, where the JAX package gathers them.
+    """
+    n = 1 << k
+    assert a.shape == (NLIMBS, n)
+    if k == 0:
+        return a
+    x = a[:, bitrev_indices(k, a.device)]
+    for s in range(1, k + 1):
+        h = 1 << (s - 1)
+        x = x.reshape(NLIMBS, n >> s, 2, h)
+        u, v = x[:, :, 0], x[:, :, 1]
+        t = limb.fmul(spec, v, twiddles[:, :: 1 << (k - s)][:, None, :h])
+        x = torch.stack([limb.fadd(spec, u, t), limb.fsub(spec, u, t)], dim=2)
+    return x.reshape(NLIMBS, n)
+
+
+def intt(spec: FieldSpec, a, inv_twiddles, k: int, n_inv_mont):
+    """Inverse DFT: :func:`ntt` with omega^-1, scaled by 1/2^k
+    (EvaluationDomain::ifft, poly/domain.rs:355-362)."""
+    return limb.fmul(spec, ntt(spec, a, inv_twiddles, k), n_inv_mont.reshape(NLIMBS, 1))
 
 
 def _stockham_axis1(spec: FieldSpec, x, tw, k: int):

@@ -290,15 +290,18 @@ def batch_invert_assigned(spec: FieldSpec, columns: List[dict], n: int, device=N
 class VerifyingKey:
     """plonk.rs:49-259."""
 
-    def __init__(self, domain, cs, fixed_commitments, permutation_commitments, curve, synthesis):
+    def __init__(self, domain, cs, fixed_commitments, permutation_commitments, selectors,
+                 curve, synthesis=None):
         self.domain: EvaluationDomain = domain
         self.cs: ConstraintSystem = cs
         self.fixed_commitments = fixed_commitments  # host affine points
         self.permutation_commitments = permutation_commitments
+        self.selectors = selectors  # (n,) bool arrays, written with the key
         self.curve = curve
         # keygen_vk's synthesis (fixed and sigma columns in Lagrange form),
         # reused by keygen_pk so the circuit is synthesized once; the
-        # ProvingKey holds the same tensors, so keeping them costs nothing
+        # ProvingKey holds the same tensors, so keeping them costs nothing.
+        # None for a key read from bytes: keygen_pk synthesizes again.
         self.synthesis = synthesis
         self.transcript_repr = self._compute_repr()
 
@@ -383,13 +386,14 @@ def keygen_vk(params, circuit, spec: FieldSpec | None = None) -> VerifyingKey:
         params.curve, params.commit_lagrange_many(columns, [1] * len(columns))
     )
     return VerifyingKey(
-        domain, cs, commitments[: len(fixed)], commitments[len(fixed) :], params.curve, synthesis
+        domain, cs, commitments[: len(fixed)], commitments[len(fixed) :], assembly.selectors,
+        params.curve, synthesis,
     )
 
 
 def keygen_pk(params, vk: VerifyingKey, circuit, spec: FieldSpec | None = None) -> ProvingKey:
     spec = spec or params.curve.scalar
-    domain, cs, _, fixed, sigmas = vk.synthesis
+    domain, cs, _, fixed, sigmas = vk.synthesis or _run_keygen_synthesis(params, spec, circuit)
     n = 1 << params.k
     dev = params.device
 

@@ -141,6 +141,30 @@ class ParamsIPA:
     def empty_msm(self) -> "MSMIPA":
         return MSMIPA(self)
 
+    # -- serialization (ipa/commitment.rs:110-147): k as u32 LE, then g,
+    # g_lagrange, w and u as compressed points, all in one batch
+    def write(self, path: str):
+        from ..plonk.serde import SerdeFormat, points_to_bytes
+
+        wu = from_affine_ints(self.curve, [self.w, self.u], self.device)
+        pts = Point(*(torch.cat(cs, dim=1) for cs in zip(self.g, self.g_lagrange, wu)))
+        with open(path, "wb") as f:
+            f.write(struct.pack("<I", self.k))
+            f.write(points_to_bytes(self.curve, pts, SerdeFormat.PROCESSED))
+
+    @classmethod
+    def read(cls, path: str, curve: CurveSpec = PALLAS, device="cuda") -> "ParamsIPA":
+        from ..plonk.serde import SerdeFormat, points_from_bytes
+
+        with open(path, "rb") as f:
+            (k,) = struct.unpack("<I", f.read(4))
+            n = 1 << k
+            pts = points_from_bytes(curve, f.read(32 * (2 * n + 2)), 2 * n + 2,
+                                    SerdeFormat.PROCESSED, device)
+        g, g_lagrange = (Point(*(c[:, lo:lo + n].contiguous() for c in pts)) for lo in (0, n))
+        w, u = to_affine_ints(curve, Point(*(c[:, 2 * n:] for c in pts)))
+        return cls(k, curve, g, g_lagrange, w, u)
+
 
 # ---------------------------------------------------------------------------
 # state carried across from / to the JAX package

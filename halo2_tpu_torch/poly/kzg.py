@@ -26,14 +26,13 @@ import numpy as np
 import torch
 
 from ..curves import bn254_g2
-from ..curves.point import Point, batch_normalize, from_affine_ints, to_affine_ints
+from ..curves.point import Point, batch_normalize, from_affine_ints
 from ..curves.spec import BN254_G1, CurveSpec
 from ..fields import limb
 from ..fields.spec import NLIMBS
 from ..ops import ntt as ntt_ops
 from ..ops.msm import msm, msm_many
 from ..ops.scalar_mul import batch_scalar_mul
-from ..transcript.transcript import point_from_bytes, point_to_bytes
 from .polynomial import COEFF, LAGRANGE, Poly
 
 
@@ -229,32 +228,47 @@ class ParamsKZG:
         )
 
     # ------------------------------------------------------------------
-    def write(self, path: str):
-        """Serialize the SRS with compressed points (the reference's
-        Processed format, kzg/commitment.rs write_custom)."""
-        gs = to_affine_ints(self.curve, self.g)
-        gl = to_affine_ints(self.curve, self.g_lagrange)
+    def write(self, path: str, fmt=None):
+        """Serialize the SRS (kzg/commitment.rs write_custom): k as u32 LE,
+        g and g_lagrange as points in ``fmt`` (a ``plonk.serde.SerdeFormat``,
+        default Processed: compressed), then the G2 generator and s*G2 as
+        four 32-byte coordinates each, in Montgomery form for the raw formats.
+        The points go out as one batch (``serde.points_to_bytes``)."""
+        from ..plonk.serde import SerdeFormat, points_to_bytes
+
+        fmt = fmt or SerdeFormat.PROCESSED
+        fq = self.curve.base
+        mont = (lambda v: v) if fmt == SerdeFormat.PROCESSED else fq.to_mont
+        both = Point(*(torch.cat([a, b], dim=1) for a, b in zip(self.g, self.g_lagrange)))
         with open(path, "wb") as f:
             f.write(struct.pack("<I", self.k))
-            for pt in gs + gl:
-                f.write(point_to_bytes(self.curve, pt))
+            f.write(points_to_bytes(self.curve, both, fmt))
             for g2pt in (self.g2, self.s_g2):
                 for c in (g2pt[0].c0, g2pt[0].c1, g2pt[1].c0, g2pt[1].c1):
-                    f.write(c.to_bytes(32, "little"))
+                    f.write(mont(c).to_bytes(32, "little"))
 
     @classmethod
-    def read(cls, path: str, device="cuda") -> "ParamsKZG":
+    def read(cls, path: str, fmt=None, device="cuda") -> "ParamsKZG":
+        """Inverse of :meth:`write`, onto ``device``.  The points are read as
+        one batch (``serde.points_from_bytes``): RawBytes checks bounds and
+        the curve equation, Processed decompresses, both on ``device``; the
+        G2 coordinates are taken as they are, as the reference reads them."""
+        from ..plonk.serde import SerdeFormat, point_bytes, points_from_bytes
+
+        fmt = fmt or SerdeFormat.PROCESSED
         curve = cls.curve
+        fq = curve.base
+        unmont = (lambda v: v) if fmt == SerdeFormat.PROCESSED else fq.from_mont
         with open(path, "rb") as f:
             (k,) = struct.unpack("<I", f.read(4))
             n = 1 << k
-            pts = [point_from_bytes(curve, f.read(32)) for _ in range(2 * n)]
+            pts = points_from_bytes(curve, f.read(2 * n * point_bytes(fmt)), 2 * n, fmt, device)
             g2s = []
             for _ in range(2):
-                c = [int.from_bytes(f.read(32), "little") for _ in range(4)]
+                c = [unmont(int.from_bytes(f.read(32), "little")) for _ in range(4)]
                 g2s.append((bn254_g2.Fq2(c[0], c[1]), bn254_g2.Fq2(c[2], c[3])))
-        g = from_affine_ints(curve, pts[:n], device)
-        g_lagrange = from_affine_ints(curve, pts[n:], device)
+        g = Point(*(c[:, :n].contiguous() for c in pts))
+        g_lagrange = Point(*(c[:, n:].contiguous() for c in pts))
         return cls(k, g, g_lagrange, g2s[0], g2s[1])
 
 

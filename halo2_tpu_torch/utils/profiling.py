@@ -7,9 +7,17 @@ calls ``torch.cuda.synchronize()`` before it reads the clock at either end:
 a phase's time is then the time its work took, not the time it took to
 enqueue it.
 
+``device_trace(logdir)`` records the enclosed block with ``torch.profiler``
+(CPU activities, and CUDA ones where a card is present) and writes it into
+``logdir`` as a gzipped Chrome trace (Perfetto opens it):
+every kernel with its device time, beside the host's operator calls.
+
 Usage::
 
     HALO2_TPU_PROFILE=1 python3 chip_smoke.py   # prints the phase report
+
+    with device_trace("bench_out/trace"):
+        create_proof(...)
 """
 
 from __future__ import annotations
@@ -74,3 +82,31 @@ def report(reset: bool = True) -> List[Tuple[str, int, float]]:
         _times.clear()
     return out
 
+
+def print_report() -> None:
+    """Print the phase report (and reset it); nothing when it is empty."""
+    rows = report()
+    if not rows:
+        return
+    total = sum(t for _, _, t in rows)
+    print(f"-- halo2_tpu profile ({total:.2f}s total) --")
+    for name, calls, secs in rows:
+        print(f"{secs:8.2f}s  {calls:4d}x  {name}")
+
+
+TRACE_FILE = "trace.json.gz"  # torch.profiler gzips a path ending in .gz
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str) -> Iterator[torch.profiler.profile]:
+    """``torch.profiler`` trace of the enclosed block, written to
+    ``logdir/trace.json.gz`` when the block ends; yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))

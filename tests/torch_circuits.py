@@ -1,32 +1,40 @@
 """Test circuits for the halo2_tpu_torch port.
 
 Copies, written against the port's frontend so that nothing here imports
-jax, of ``__graft_entry__._EntryCircuit`` (the circuit of the pinned proof
-``tests/data/dryrun_proof_k6.hex``), ``tests/circuits.BenchPlonkCircuit``
+jax, of ``tests/circuits.SimpleCircuit`` (simple-example.rs),
+``tests/circuits.BenchPlonkCircuit``
 (the reference's benches/plonk.rs workload), ``tests/circuits.
 StandardPlonkCircuit`` (tests/plonk_api.rs, the circuit of the pinned
 ``tests/data/plonk_api_*_k5.hex`` proofs) and ``examples/shuffle.py``'s
 ``ShuffleCircuit`` (a second-phase advice column); and ``LookupRangeCircuit``,
-the shape of the reference's benches/dev_lookup.rs circuit.
+the shape of the reference's benches/dev_lookup.rs circuit.  ``EntryCircuit``,
+the circuit of the pinned proof ``tests/data/dryrun_proof_k6.hex``
+(``__graft_entry__._EntryCircuit``), lives in ``halo2_tpu_torch/entry.py``
+and is re-exported here.
 """
 
 import random
 
 from halo2_tpu_torch.circuit import Circuit, Value
+from halo2_tpu_torch.entry import EntryCircuit  # noqa: F401  (the pinned k=6 proof's circuit)
 from halo2_tpu_torch.plonk.circuit import Constant
 from halo2_tpu_torch.poly import Rotation
 
 
-class EntryCircuit(Circuit):
-    """Mul-gate circuit (simple-example.rs shape): out = a^4 at row 0 of the
-    instance column, via two mul regions."""
+class SimpleCircuit(Circuit):
+    """simple-example.rs: out = constant * a^4 via three mul regions (a copy
+    of ``tests/circuits.SimpleCircuit``).
 
-    def __init__(self, constant, a):
+    Exercises: custom gate with selector, equality (permutation), constants,
+    instance exposure.
+    """
+
+    def __init__(self, constant: int, a):
         self.constant = constant
-        self.a = a
+        self.a = a  # Value
 
     def without_witnesses(self):
-        return EntryCircuit(self.constant, Value.unknown())
+        return SimpleCircuit(self.constant, Value.unknown())
 
     @classmethod
     def configure(cls, meta):
@@ -44,32 +52,42 @@ class EntryCircuit(Circuit):
             rhs = cells.query_advice(advice[1], Rotation.cur())
             out = cells.query_advice(advice[0], Rotation.next())
             s = cells.query_selector(s_mul)
-            return [s * (lhs * rhs - out)]
+            return [("mul", s * (lhs * rhs - out))]
 
         meta.create_gate("mul", gate)
-        return {"advice": advice, "instance": instance, "s_mul": s_mul}
+        return {"advice": advice, "instance": instance, "constant": constant, "s_mul": s_mul}
 
     def synthesize(self, config, layouter):
         advice = config["advice"]
 
-        def load(value):
-            return layouter.assign_region(
-                "load", lambda region: region.assign_advice(advice[0], 0, lambda: value)
-            )
+        def load_private(value):
+            def do(region):
+                return region.assign_advice(advice[0], 0, lambda: value)
+
+            return layouter.namespace("load private").assign_region("load private", do)
+
+        def load_constant(c):
+            def do(region):
+                return region.assign_advice_from_constant(advice[0], 0, c)
+
+            return layouter.namespace("load constant").assign_region("load constant", do)
 
         def mul(a_cell, b_cell):
             def do(region):
                 config["s_mul"].enable(region, 0)
                 a_cell.copy_advice(region, advice[0], 0)
                 b_cell.copy_advice(region, advice[1], 0)
-                return region.assign_advice(advice[0], 1, lambda: a_cell.value * b_cell.value)
+                value = a_cell.value * b_cell.value
+                return region.assign_advice(advice[0], 1, lambda: value)
 
-            return layouter.assign_region("mul", do)
+            return layouter.namespace("mul").assign_region("mul", do)
 
-        a = load(self.a)
+        a = load_private(self.a)
+        c = load_constant(self.constant)
         ab = mul(a, a)
-        out = mul(ab, ab)
-        layouter.constrain_instance(out.cell, config["instance"], 0)
+        absq = mul(ab, ab)
+        out = mul(c, absq)
+        layouter.namespace("expose").constrain_instance(out.cell, config["instance"], 0)
 
 
 class BenchPlonkCircuit(Circuit):
