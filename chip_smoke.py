@@ -79,13 +79,32 @@ Phases, one line each, every failure raising (non-zero exit, no result line):
    through ``ParamsKZG.write`` / ``read`` in every format (g and g_lagrange
    equal, limb for limb) and a RawBytes file with one flipped coordinate
    rejected; ``bench/full.py``'s MSM, NTT and coset legs and a prove leg at
-   k=10, their metric names checked and every value positive.
+   k=10, their metric names checked and every value positive;
+15. the dev tools and Poseidon: (a) MockProver of ``BenchPlonkCircuit`` at
+   k=17 with its columns on the card: ``verify()`` (the vectorised gate
+   check, every product K1) finds nothing, K1 launched during it; one advice
+   cell changed, it reports exactly the product gate and the copy at that
+   row, Display strings included; (b) at k=11 (n = 2048, the vectorised
+   path) the card's failure list and its strings equal the per-row host
+   path's for every failure kind (ConstraintNotSatisfied,
+   ConstraintPoisoned, Lookup, Permutation, CellNotAssigned); (c)
+   ``LookupRangeCircuit`` at k=14 under MockProver is satisfied, and one
+   value out of the table gives exactly one Lookup failure at its row; (d)
+   the Pow5 Poseidon ``HashCircuit`` (width 3, rate 2, BN254) at K=7 over
+   KZG/GWC: MockProver satisfied, the proof equal to the JAX package's pin
+   ``tests/data/poseidon_gwc_k7.hex``, a wrong instance rejected; (e) the
+   reference's benches/poseidon.rs (P128Pow5T3 over Pallas Fp, K=7) over
+   ``ParamsIPA`` on Vesta: proof verified, a flipped byte rejected; the
+   keygen, prove and verify walls of (d) and (e), warm, fenced, the median of
+   3; (f) the examples ``two_chip`` and ``shuffle`` prove on the card, and
+   the files ``circuit_layout`` writes (into a temporary directory) hold the
+   strings the host renders.
 
-Phases 6, 10, 11 and 14 each zero the kernels' launch counters (and the calls of
+Phases 6, 10, 11, 14 and 15 each zero the kernels' launch counters (and the calls of
 ``limb.finv`` and ``msm_many``) just before they start and read them just
 after; K1, ``mont_pow``, ``ec_horner`` and the three MSM entries must each
-have been launched (and K2 in phases 10 and 11, through ``gntt`` and the IPA
-rounds); on each, ``msm_digits``, ``ec_window_table`` and ``ec_horner``
+have been launched (and K2 in phases 10, 11 and 15, through ``gntt`` and the
+IPA rounds); on each, ``msm_digits``, ``ec_window_table`` and ``ec_horner``
 launches must equal the ``msm_many`` calls and ``ec_window_fold`` launches
 lie between one and three times them, and on phase 6 ``mont_pow`` launches
 must equal the ``finv`` calls and the standalone K2 / K3 launches be 0.  Then
@@ -104,6 +123,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -933,6 +953,208 @@ def phase_bench(torch, dev, k: int = 10) -> list:
     return lines
 
 
+def phase_mock_k17(torch, counted, dev, k: int = 17) -> dict:
+    """MockProver of BenchPlonkCircuit at k=17 with its columns on the card:
+    verify() finds nothing; then one changed advice cell gives exactly the
+    failures tamper_bench_plonk names."""
+    from halo2_tpu_torch.circuit import Value
+    from halo2_tpu_torch.dev import MockProver
+    from halo2_tpu_torch.fields.spec import BN254_FR
+    from torch_circuits import BenchPlonkCircuit, tamper_bench_plonk
+
+    t0 = time.perf_counter()
+    prover = MockProver.run(BN254_FR, k, BenchPlonkCircuit(k, Value.known(2)), [], device=dev)
+    res = {"k": k, "run_s": time.perf_counter() - t0}
+    cols = prover._vec_columns()
+    if not all(v.is_cuda and m.is_cuda for group in cols for v, m in group):
+        raise AssertionError("[15] the vectorised MockProver columns are not on the card")
+    del cols
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = counted["mont_mul"].launches
+    t0 = time.perf_counter()
+    failures = prover.verify()
+    torch.cuda.synchronize()
+    res["verify_s"] = time.perf_counter() - t0
+    res["k1_launches_in_verify"] = counted["mont_mul"].launches - before
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if failures:
+        raise AssertionError(f"[15] k={k} MockProver: {len(failures)} failures, first {failures[0]}")
+    if res["k1_launches_in_verify"] <= 0:
+        raise AssertionError(f"[15] k={k} MockProver.verify() launched no K1")
+    want = tamper_bench_plonk(prover, 1000)
+    t0 = time.perf_counter()
+    got = [(f.kind, f.row, str(f)) for f in prover.verify()]
+    res["verify_tampered_s"] = time.perf_counter() - t0
+    if got != want:
+        raise AssertionError(f"[15] k={k} tampered cell: {got} != {want}")
+    log(f"[15] (a) MockProver k={k} BenchPlonkCircuit, columns on the card: run {res['run_s']:.2f} s, "
+        f"verify() {res['verify_s']:.3f} s with {res['k1_launches_in_verify']} K1 launches, "
+        f"peak device memory {res['peak_gib']:.3f} GiB, satisfied; one changed cell: exactly "
+        f"{[f[0] for f in got]} at row {want[0][1]} ({res['verify_tampered_s']:.3f} s)")
+    return res
+
+
+def phase_mock_kinds(dev) -> None:
+    """Card equals host: every failure kind at k=11 (the vectorised path on
+    the card against the per-row path), then the lookup at k=14."""
+    import torch_circuits
+    from halo2_tpu_torch.circuit import Value
+    from halo2_tpu_torch.dev import MockProver
+    from halo2_tpu_torch.fields.spec import BN254_FR
+    from torch_circuits import LookupRangeCircuit, failure_summary
+
+    def out_of_table(prover):
+        prover.advice[0][700] = 300
+
+    cases = torch_circuits.failure_cases(torch_circuits, Value)
+    cases["lookup_range"] = (LookupRangeCircuit(11), [], out_of_table, {"Lookup"})
+    for name, (circuit, instances, tamper, kinds) in cases.items():
+        prover = MockProver.run(BN254_FR, 11, circuit, instances, device=dev)
+        if tamper is not None:
+            tamper(prover)
+        card = failure_summary(prover.verify())
+        host = failure_summary(prover.verify(vectorized=False))
+        if card != host or {f[0] for f in card} != kinds:
+            raise AssertionError(f"[15] k=11 {name}: the card's failures differ from the host's "
+                                 f"or from {sorted(kinds)}")
+        log(f"[15] (b) k=11 {name}: the card's {len(card)} failures ({', '.join(sorted(kinds)) or 'none'}) "
+            f"== the per-row host path's, strings included")
+    t0 = time.perf_counter()
+    prover = MockProver.run(BN254_FR, 14, LookupRangeCircuit(14), [], device=dev)
+    if prover.verify():
+        raise AssertionError("[15] k=14 LookupRangeCircuit: MockProver not satisfied")
+    row = 5000
+    prover.advice[0][row] = 300
+    got = [(f.kind, f.row) for f in prover.verify()]
+    if got != [("Lookup", row)]:
+        raise AssertionError(f"[15] k=14 one value out of the table: {got}")
+    log(f"[15] (c) k=14 LookupRangeCircuit: satisfied; one value out of the table: exactly one "
+        f"Lookup failure at row {row}; {time.perf_counter() - t0:.2f} s")
+
+
+def poseidon_walls(torch, profiling, params, circuit, instances, create, verify, dev) -> tuple:
+    """keygen, prove and verify of one circuit: warm, fenced, the median of
+    3 each; then one more prove with its synced phases; (vk, proof, walls,
+    the phases)."""
+    from halo2_tpu_torch.bench.full import warm_walls
+    from halo2_tpu_torch.plonk import keygen_pk, keygen_vk
+
+    def keygen():
+        vk = keygen_vk(params, circuit.without_witnesses())
+        return vk, keygen_pk(params, vk, circuit.without_witnesses())
+
+    (vk, pk), kw = warm_walls(keygen, 3, dev)
+    proof, pw = warm_walls(lambda: create(pk), 3, dev)
+    ok, vw = warm_walls(lambda: verify(vk, proof, instances), 3, dev)
+    if ok is not True:
+        raise AssertionError("[15] a Poseidon proof was rejected")
+    walls = {name: {"median_s": statistics.median(w), "samples_s": w}
+             for name, w in (("keygen", kw), ("prove", pw), ("verify", vw))}
+    profiling.report(reset=True)
+    create(pk)
+    torch.cuda.synchronize()
+    return vk, proof, walls, profiling.report(reset=True)
+
+
+def phase_poseidon(torch, profiling, smi: str, dev) -> dict:
+    """The Pow5 Poseidon hash circuit at K=7: BN254 over KZG/GWC against the
+    pin, and the reference's bench (Pallas Fp) over IPA on Vesta."""
+    from halo2_tpu_torch.circuit import Value
+    from halo2_tpu_torch.curves.spec import BN254_G1, VESTA
+    from halo2_tpu_torch.dev import MockProver
+    from halo2_tpu_torch.gadgets.poseidon import ConstantLength, hash_message
+    from halo2_tpu_torch.plonk import create_proof, verify_proof
+    from halo2_tpu_torch.poly.ipa import IPASingleStrategy, ParamsIPA
+    from halo2_tpu_torch.poly.kzg import ParamsKZG
+    from halo2_tpu_torch.poly.multiopen_gwc import gwc_create_proof, gwc_verify_proof
+    from halo2_tpu_torch.poly.multiopen_ipa import ipa_create_proof, ipa_verify_proof
+    from halo2_tpu_torch.transcript import Blake2bTranscript
+    from halo2_tpu_torch.utils.rng import FieldRng
+    from torch_circuits import HashCircuit, PastaHashCircuit
+
+    k = 7
+    with open(os.path.join(HERE, "tests", "data", "poseidon_gwc_k7.hex")) as f:
+        expected = bytes.fromhex(f.read().strip())  # a missing pin fails: never re-pinned
+    res = {}
+    for name, cls, curve in (("gwc_bn254", HashCircuit, BN254_G1),
+                             ("ipa_vesta", PastaHashCircuit, VESTA)):
+        spec = curve.scalar
+        digest = hash_message(cls.spec, ConstantLength(2), [6, 42])
+        circuit = cls(Value.known([6, 42]), Value.known(digest))
+        mock = MockProver.run(spec, k, circuit, [[digest]], device=dev)
+        if mock.verify() or mock.verify(vectorized=True):
+            raise AssertionError(f"[15] Poseidon {name}: MockProver not satisfied")
+        if name == "gwc_bn254":
+            params = ParamsKZG.setup(k, seed=b"poseidon-e2e", device=dev)
+            opts, strategy = {}, lambda: None
+            create_mo, verify_mo, seed = gwc_create_proof, gwc_verify_proof, b"poseidon-rng"
+        else:
+            params = ParamsIPA.setup(k, VESTA, device=dev)  # the reference's "Halo2-Parameters"
+            opts, strategy = {"query_instance": True}, lambda: IPASingleStrategy(params)
+            create_mo, verify_mo, seed = ipa_create_proof, ipa_verify_proof, b"poseidon-ipa-rng"
+
+        def create(pk):
+            return create_proof(params, pk, [circuit], [[[digest]]], FieldRng(spec, seed),
+                                Blake2bTranscript(curve), create_mo, **opts)
+
+        def verify(vk, proof, instances):
+            return verify_proof(params, vk, instances, Blake2bTranscript(curve, proof), verify_mo,
+                                strategy=strategy(), **opts)
+
+        vk, proof, walls, phases = poseidon_walls(torch, profiling, params, circuit, [[[digest]]],
+                                                  create, verify, dev)
+        if name == "gwc_bn254":
+            if proof != expected:
+                raise AssertionError("[15] the K=7 Poseidon GWC proof differs from its pin")
+            if verify(vk, proof, [[[(digest + 1) % spec.p]]]):
+                raise AssertionError("[15] the Poseidon GWC proof accepted a wrong instance")
+            check = "== pinned bytes; wrong instance rejected"
+        else:
+            if not rejects_flipped(lambda pr: verify(vk, pr, [[[digest]]]), proof, len(proof) // 2):
+                raise AssertionError("[15] the Poseidon IPA proof accepted a flipped byte")
+            check = "flipped byte rejected"
+        res[name] = {"proof_bytes": len(proof), **walls}
+        tag = f"[15] ({'d' if name == 'gwc_bn254' else 'e'})"
+        log(f"{tag} Poseidon K={k} {name}: MockProver satisfied; proof {len(proof)} B verified, "
+            f"{check}; warm fenced median of 3 (s): "
+            + ", ".join(f"{w} {walls[w]['median_s']:.4f}" for w in ("keygen", "prove", "verify"))
+            + f"; {smi}")
+        log_walls(tag, {w: walls[w]["median_s"] for w in walls}, phases)
+    return res
+
+
+def phase_examples(dev) -> None:
+    """two_chip and shuffle on the card; circuit_layout's files against the
+    strings the host renders."""
+    import tempfile
+
+    from halo2_tpu_torch.circuit import Value
+    from halo2_tpu_torch.curves.spec import BN254_G1
+    from halo2_tpu_torch.dev import CircuitLayout, circuit_dot_graph
+    from halo2_tpu_torch.examples import circuit_layout, shuffle, two_chip
+    from torch_circuits import StandardPlonkCircuit, plonk_api_common
+
+    for name, example in (("two_chip", two_chip), ("shuffle", shuffle)):
+        t0 = time.perf_counter()
+        if example.main() is not True:
+            raise AssertionError(f"[15] example {name} failed")
+        log(f"[15] (f) example {name} on the card: {time.perf_counter() - t0:.2f} s")
+    spec = BN254_G1.scalar
+    _, inst, table = plonk_api_common(spec)
+    circuit = StandardPlonkCircuit(Value.unknown(), table)
+    want = {"layout.svg": CircuitLayout().render(spec, 5, circuit, [[inst]]),
+            "circuit.dot": circuit_dot_graph(spec, circuit)}
+    with tempfile.TemporaryDirectory() as out:
+        circuit_layout.main(out)
+        for fname, text in want.items():
+            with open(os.path.join(out, fname)) as f:
+                if f.read() != text:
+                    raise AssertionError(f"[15] circuit_layout's {fname} differs from the host's "
+                                         f"render")
+    log("[15] (f) circuit_layout: layout.svg and circuit.dot == the host's render")
+
+
 def main() -> None:
     import torch
 
@@ -1169,14 +1391,27 @@ def main() -> None:
     log(f"[14] entry, serde and bench: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"serde_walls_s": serde_walls, "bench_k10": bench_lines}))
 
+    # ---- 15: the dev tools and Poseidon -----------------------------------------
+    t0 = time.perf_counter()
+    start_counting(torch, counted, calls.values())
+    mock_k17 = phase_mock_k17(torch, counted, dev)
+    phase_mock_kinds(dev)
+    poseidon = phase_poseidon(torch, profiling, smi, dev)
+    phase_examples(dev)
+    launches15 = read_counts(torch, counted, "[15]", calls,
+                             PATH_KERNELS + ("ec_add", "ec_scalar_mul"))
+    check_msm_launches("[15]", launches15, calls)
+    log(f"[15] dev tools, Poseidon and examples: {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"mock_prover_k17": mock_k17, "poseidon_k7": poseidon}))
+
     def main_path(name):
-        """A prove-path kernel's launches in phases 6, 10, 11 and 14."""
+        """A prove-path kernel's launches in phases 6, 10, 11, 14 and 15."""
         by_phase = {"6": launches[name], "10": launches10[name], "11": launches11[name],
-                    "14": launches14[name]}
+                    "14": launches14[name], "15": launches15[name]}
         return {"launches": sum(by_phase.values()), "launches_by_phase": by_phase}
 
     def roofline_path(name):
-        """A roofline kernel's launches (phase 8); phases 6, 10, 11 and 14 run none."""
+        """A roofline kernel's launches (phase 8); phases 6, 10, 11, 14 and 15 run none."""
         return {"launches": roof_launches[name],
                 "launches_by_phase": {**main_path(name)["launches_by_phase"],
                                       "8": roof_launches[name]}}

@@ -1,4 +1,5 @@
 from .value import Assigned, Value, to_assigned
+from .floor_planner_v1 import V1FloorPlanner
 from .layouter import (
     AssignedCell,
     Assignment,

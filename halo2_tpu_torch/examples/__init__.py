@@ -1,3 +1,4 @@
 """The JAX package's ``examples/`` on the port: ``simple_example``,
-``serialization`` and ``cost_model``, each ``python -m
-halo2_tpu_torch.examples.<name>`` from the repository root, on the card."""
+``serialization``, ``cost_model``, ``two_chip``, ``shuffle`` and
+``circuit_layout``, each ``python -m halo2_tpu_torch.examples.<name>`` from
+the repository root, on the card."""

@@ -75,6 +75,22 @@ def _apply_replacements(cs: ConstraintSystem, replacements):
         ]
 
 
+def convert_selectors(cs: ConstraintSystem, selectors: List[np.ndarray]):
+    """Turn every virtual selector into its own fixed column (direct mode).
+
+    Returns the selector polynomial values (list of 0/1 numpy arrays).  The
+    ConstraintSystem is mutated: new fixed columns + rewritten expressions.
+    """
+    replacements = []
+    for _ in range(cs.num_selectors):
+        column = cs.fixed_column()
+        cs.selector_map.append(column)
+        idx = cs.query_fixed_index(column, Rotation.cur())
+        replacements.append(FixedExpr(FixedQuery(idx, column.index, Rotation.cur())))
+    _apply_replacements(cs, replacements)
+    return [np.asarray(s, dtype=np.uint8) for s in selectors]
+
+
 def _process_selector_combinations(descriptions, max_degree, allocate):
     """compress_selectors.rs:50-227 ``process`` — deterministic packing of
     disjoint simple selectors into combination fixed columns under the degree

@@ -16,6 +16,7 @@ the randomness is drawn in the reference's order, so the bytes are unchanged.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List
 
 import torch
@@ -119,6 +120,22 @@ class ProverQuery:
 # ---------------------------------------------------------------------------
 
 
+def _sanity_checks_enabled() -> bool:
+    """In-prover well-formedness asserts, the analog of the reference's
+    `sanity-checks` cargo feature (lookup/prover.rs:252-288,
+    permutation/prover.rs).  Off by default: each forces a device-to-host
+    copy."""
+    return os.environ.get("HALO2_TPU_SANITY_CHECKS") == "1"
+
+
+def _assert_product_telescopes(spec: FieldSpec, z, u: int, what: str):
+    """z[0] = 1 and z[u] = 1 — the grand product telescopes back to one.
+    A z[u] != 1 here means soundness is already broken upstream."""
+    z0, zu = limb.to_ints(spec, z[:, [0, u]])
+    assert z0 == 1, f"{what}: z[0] = {z0} != 1"
+    assert zu == 1, f"{what}: z[u] = {zu} != 1 (soundness broken)"
+
+
 def _prefix_product_with_start(spec: FieldSpec, mv, start):
     """z[0] = start, z[i] = start * prod_{r<i} mv[r]  (grand-product scan).
 
@@ -205,6 +222,12 @@ def _permutation_commit(
         last_z = z[:, n - (bf + 1)]
         zs.append(z)
         blinds.append(rng())  # commitment blind (KZG ignores the value)
+    if _sanity_checks_enabled() and zs:
+        # across all chunks the permutation grand product telescopes to 1:
+        # the final chunk's chained last_z must be one (permutation/prover.rs
+        # sanity analog)
+        final = limb.to_ints(spec, last_z.reshape(NLIMBS, 1))[0]
+        assert final == 1, f"permutation product: final z = {final} != 1"
 
     # the set commitments are written back to back: one batched MSM (none
     # for a circuit without permutation columns)
@@ -310,6 +333,8 @@ def _lookup_product(permuted, pk, beta: int, gamma: int, rng):
     prod = limb.fmul(spec, prod, limb.fadd(spec, permuted["comp_table"], gamma_b))
 
     z = _prefix_product_with_start(spec, prod, limb.from_int(spec, 1, dev))
+    if _sanity_checks_enabled():
+        _assert_product_telescopes(spec, z, n - (bf + 1), "lookup product")
     z = _set_rows(z, n - bf, limb.from_ints(spec, [rng() for _ in range(bf)], dev))
     return z, rng()
 

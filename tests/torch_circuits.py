@@ -5,19 +5,34 @@ jax, of ``tests/circuits.SimpleCircuit`` (simple-example.rs),
 ``tests/circuits.BenchPlonkCircuit``
 (the reference's benches/plonk.rs workload), ``tests/circuits.
 StandardPlonkCircuit`` (tests/plonk_api.rs, the circuit of the pinned
-``tests/data/plonk_api_*_k5.hex`` proofs) and ``examples/shuffle.py``'s
-``ShuffleCircuit`` (a second-phase advice column); and ``LookupRangeCircuit``,
+``tests/data/plonk_api_*_k5.hex`` proofs); and ``LookupRangeCircuit``,
 the shape of the reference's benches/dev_lookup.rs circuit.  ``EntryCircuit``,
 the circuit of the pinned proof ``tests/data/dryrun_proof_k6.hex``
 (``__graft_entry__._EntryCircuit``), lives in ``halo2_tpu_torch/entry.py``
-and is re-exported here.
+and is re-exported here, as is ``ShuffleCircuit`` (a second-phase advice
+column), which lives in ``halo2_tpu_torch/examples/shuffle.py``.
+
+The gadget circuits are copies of the JAX package's test circuits:
+``V1Simple`` (tests/test_dev_tools.py), the utilities' ``CondSwapCircuit``,
+``RunningSumCircuit`` and ``LookupRangeCheckCircuit`` (tests/test_utilities.py,
+where the last is named ``LookupRangeCircuit``), and Poseidon's
+``HashCircuit`` (tests/test_poseidon.py, pow5.rs) with ``PastaHashCircuit``,
+its P128Pow5T3 over Pallas Fp: the reference's benches/poseidon.rs circuit.
 """
 
-import random
-
-from halo2_tpu_torch.circuit import Circuit, Value
+from halo2_tpu_torch.circuit import Circuit, V1FloorPlanner, Value
+from halo2_tpu_torch.dev.mock_prover import UNASSIGNED
 from halo2_tpu_torch.entry import EntryCircuit  # noqa: F401  (the pinned k=6 proof's circuit)
-from halo2_tpu_torch.plonk.circuit import Constant
+from halo2_tpu_torch.examples.shuffle import ShuffleCircuit, shuffled_copy  # noqa: F401
+from halo2_tpu_torch.fields.spec import BN254_FR, PASTA_FP
+from halo2_tpu_torch.gadgets.poseidon import ConstantLength, PoseidonHashGadget, Pow5Chip, p128_pow5_t3
+from halo2_tpu_torch.gadgets.utilities import (
+    CondSwapChip,
+    LookupRangeCheckConfig,
+    RunningSumConfig,
+    load_private,
+)
+from halo2_tpu_torch.plonk.circuit import ADVICE, Constant
 from halo2_tpu_torch.poly import Rotation
 
 
@@ -346,136 +361,6 @@ class LookupRangeCircuit(Circuit):
         layouter.assign_region("assign values", assign)
 
 
-FIRST_PHASE = 0
-SECOND_PHASE = 1
-
-
-def shuffled_copy(original, rng: random.Random):
-    """Row-shuffle of a column-major W x H array (shuffle.rs:30-44)."""
-    out = [list(col) for col in original]
-    h = len(original[0])
-    for row in range(h - 1, 0, -1):
-        rand_row = rng.randrange(row)
-        for col in out:
-            col[row], col[rand_row] = col[rand_row], col[row]
-    return out
-
-
-class ShuffleCircuit(Circuit):
-    """examples/shuffle.py: W first-phase advice column pairs (original /
-    shuffled), two challenges usable after the first phase, and a
-    second-phase running product z; W and H are class attributes."""
-
-    W = 4
-    H = 32
-
-    def __init__(self, p: int, original: Value, shuffled: Value):
-        self.p = p  # field modulus, for host-side witness arithmetic
-        self.original = original  # Value of [W][H] canonical ints
-        self.shuffled = shuffled
-
-    @classmethod
-    def rand(cls, p: int, rng: random.Random) -> "ShuffleCircuit":
-        original = [[rng.randrange(p) for _ in range(cls.H)] for _ in range(cls.W)]
-        return cls(p, Value.known(original), Value.known(shuffled_copy(original, rng)))
-
-    def without_witnesses(self):
-        return type(self)(self.p, Value.unknown(), Value.unknown())
-
-    @classmethod
-    def configure(cls, meta):
-        q_shuffle = meta.selector()
-        q_first = meta.selector()
-        q_last = meta.selector()
-        original = [meta.advice_column_in(FIRST_PHASE) for _ in range(cls.W)]
-        shuffled = [meta.advice_column_in(FIRST_PHASE) for _ in range(cls.W)]
-        theta = meta.challenge_usable_after(FIRST_PHASE)
-        gamma = meta.challenge_usable_after(FIRST_PHASE)
-        z = meta.advice_column_in(SECOND_PHASE)
-
-        def z_first(cells):
-            q = cells.query_selector(q_first)
-            return [q * (Constant(1) - cells.query_advice(z, Rotation.cur()))]
-
-        meta.create_gate("z should start with 1", z_first)
-
-        def z_last(cells):
-            q = cells.query_selector(q_last)
-            return [q * (Constant(1) - cells.query_advice(z, Rotation.cur()))]
-
-        meta.create_gate("z should end with 1", z_last)
-
-        def z_transition(cells):
-            q = cells.query_selector(q_shuffle)
-            orig = [cells.query_advice(c, Rotation.cur()) for c in original]
-            shuf = [cells.query_advice(c, Rotation.cur()) for c in shuffled]
-            th = cells.query_challenge(theta)
-            ga = cells.query_challenge(gamma)
-            z_cur = cells.query_advice(z, Rotation.cur())
-            z_next = cells.query_advice(z, Rotation.next())
-            comp_o = orig[0]
-            for e in orig[1:]:
-                comp_o = comp_o * th + e
-            comp_s = shuf[0]
-            for e in shuf[1:]:
-                comp_s = comp_s * th + e
-            return [q * (z_cur * (comp_o + ga) - z_next * (comp_s + ga))]
-
-        meta.create_gate("z should have valid transition", z_transition)
-
-        return {
-            "q_shuffle": q_shuffle, "q_first": q_first, "q_last": q_last,
-            "original": original, "shuffled": shuffled,
-            "theta": theta, "gamma": gamma, "z": z,
-        }
-
-    check_telescopes = True  # the witness generator's sanity assert
-
-    def synthesize(self, config, layouter):
-        p = self.p
-        H = self.H
-        theta_v = layouter.get_challenge(config["theta"])
-        gamma_v = layouter.get_challenge(config["gamma"])
-
-        def do(region):
-            config["q_first"].enable(region, 0)
-            config["q_last"].enable(region, H)
-            for offset in range(H):
-                config["q_shuffle"].enable(region, offset)
-            for key, vals_v in (("original", self.original), ("shuffled", self.shuffled)):
-                for idx, column in enumerate(config[key]):
-                    col = vals_v.map(lambda a, idx=idx: a[idx])
-                    for offset in range(H):
-                        region.assign_advice(
-                            column, offset, lambda v=col, o=offset: v.map(lambda c: c[o])
-                        )
-
-            # second phase: the running product z from the squeezed challenges
-            # (unknown during the first-phase pass, so skipped there)
-            def compute_z(t):
-                ((original, shuffled), (theta, gamma)) = t
-                zv = [1]
-                for i in range(H):
-                    comp_o = 0
-                    for col in original:
-                        comp_o = (comp_o * theta + col[i]) % p
-                    comp_s = 0
-                    for col in shuffled:
-                        comp_s = (comp_s * theta + col[i]) % p
-                    zv.append(zv[-1] * (comp_o + gamma) % p * pow((comp_s + gamma) % p, -1, p) % p)
-                if self.check_telescopes:
-                    assert zv[-1] == 1, "shuffle grand product must telescope"
-                return zv
-
-            z_vals = self.original.zip(self.shuffled).zip(theta_v.zip(gamma_v)).map(compute_z)
-            for offset in range(H + 1):
-                region.assign_advice(
-                    config["z"], offset, lambda o=offset: z_vals.map(lambda zs: zs[o])
-                )
-
-        layouter.assign_region("Shuffle original into shuffled", do)
-
-
 def configure_tuple_lookup(meta, rotation):
     """Two advice columns a, b and a two-column lookup
     (a, a^2 + b) in (t0, t1).  Takes the frontend's ``meta`` and ``Rotation``
@@ -523,3 +408,227 @@ class TupleLookupCircuit(Circuit):
                 region.assign_advice(config["b"], row, lambda: Value.known(5))
 
         layouter.assign_region("tuple rows", assign)
+
+
+class V1Simple(SimpleCircuit):
+    """SimpleCircuit laid out by the V1 floor planner."""
+
+    floor_planner = V1FloorPlanner
+
+    def without_witnesses(self):
+        return V1Simple(self.constant, Value.unknown())
+
+
+class CondSwapCircuit(Circuit):
+    """utilities/cond_swap.rs test circuit: swap (a, b) when ``swap``."""
+
+    def __init__(self, a, b, swap):
+        self.a, self.b, self.swap = a, b, swap
+
+    def without_witnesses(self):
+        return CondSwapCircuit(Value.unknown(), Value.unknown(), Value.unknown())
+
+    @classmethod
+    def configure(cls, meta):
+        advices = [meta.advice_column() for _ in range(5)]
+        return CondSwapChip.configure(meta, advices)
+
+    def synthesize(self, config, layouter):
+        chip = CondSwapChip(config)
+        a = load_private(layouter, config.a, self.a)
+        a_sw, b_sw = chip.swap(layouter, (a, self.b), self.swap)
+        # check the witnessed swap output on the host
+        if not a_sw.value.is_none():
+            av, bv, sw = self.a.value(), self.b.value(), self.swap.value()
+            assert a_sw.value.value() == (bv if sw else av)
+            assert b_sw.value.value() == (av if sw else bv)
+
+
+class RunningSumCircuit(Circuit):
+    """utilities/decompose_running_sum.rs test circuit: 3 windows of 3 bits."""
+
+    WINDOW = 3
+    WORD_BITS = 9
+    NUM_WINDOWS = 3
+
+    def __init__(self, alpha, strict=True):
+        self.alpha = alpha
+        self.strict = strict
+
+    def without_witnesses(self):
+        return RunningSumCircuit(Value.unknown(), self.strict)
+
+    @classmethod
+    def configure(cls, meta):
+        z = meta.advice_column()
+        q = meta.selector()
+        constants = meta.fixed_column()
+        meta.enable_constant(constants)
+        return RunningSumConfig.configure(meta, q, z, cls.WINDOW, PASTA_FP)
+
+    def synthesize(self, config, layouter):
+        def do(region):
+            config.witness_decompose(
+                region, 0, self.alpha, self.strict, self.WORD_BITS, self.NUM_WINDOWS
+            )
+
+        layouter.namespace("decompose").assign_region("decompose", do)
+
+
+class LookupRangeCheckCircuit(Circuit):
+    """utilities/lookup_range_check.rs test circuit: two 4-bit words."""
+
+    K = 4
+    NUM_WORDS = 2
+
+    def __init__(self, value, strict=True):
+        self.value = value
+        self.strict = strict
+
+    def without_witnesses(self):
+        return LookupRangeCheckCircuit(Value.unknown(), self.strict)
+
+    @classmethod
+    def configure(cls, meta):
+        running_sum = meta.advice_column()
+        table_idx = meta.lookup_table_column()
+        constants = meta.fixed_column()
+        meta.enable_constant(constants)
+        return LookupRangeCheckConfig.configure(meta, running_sum, table_idx, cls.K, PASTA_FP)
+
+    def synthesize(self, config, layouter):
+        config.load(layouter)
+        config.witness_check(layouter, self.value, self.NUM_WORDS, self.strict)
+
+
+class HashCircuit(Circuit):
+    """poseidon pow5.rs HashCircuit: hash a 2-word message with P128Pow5T3
+    over BN254 Fr (width 3, rate 2) and expose the digest as instance 0."""
+
+    spec = p128_pow5_t3(BN254_FR)
+
+    def __init__(self, message, output):
+        self.message = message  # Value of list[int] (len 2)
+        self.output = output
+
+    def without_witnesses(self):
+        return type(self)(Value.unknown(), Value.unknown())
+
+    @classmethod
+    def configure(cls, meta):
+        width = cls.spec.t
+        state = [meta.advice_column() for _ in range(width)]
+        partial_sbox = meta.advice_column()
+        rc_a = [meta.fixed_column() for _ in range(width)]
+        rc_b = [meta.fixed_column() for _ in range(width)]
+        meta.enable_constant(rc_b[0])
+        instance = meta.instance_column()
+        meta.enable_equality(instance)
+        config = Pow5Chip.configure(meta, cls.spec, state, partial_sbox, rc_a, rc_b)
+        return {"pow5": config, "instance": instance}
+
+    def synthesize(self, config, layouter):
+        chip = Pow5Chip(config["pow5"])
+        message = self.message
+
+        def load(region):
+            cells = []
+            for i in range(2):
+                v = message.map(lambda m, i=i: m[i])
+                cells.append(region.assign_advice(config["pow5"].state[i], 0, lambda v=v: v))
+            return cells
+
+        words = layouter.namespace("load message").assign_region("load message", load)
+        gadget = PoseidonHashGadget(chip, ConstantLength(2))
+        out = gadget.hash(layouter.namespace("hash"), words)
+        layouter.namespace("expose").constrain_instance(out.cell, config["instance"], 0)
+
+
+class PastaHashCircuit(HashCircuit):
+    """HashCircuit over Pallas Fp: the reference's benches/poseidon.rs
+    (P128Pow5T3, width 3, rate 2, a 2-word message), proved over Vesta."""
+
+    spec = p128_pow5_t3(PASTA_FP)
+
+
+def failure_summary(failures):
+    """A MockProver failure list as plain tuples, in order, so that the two
+    packages' lists (and their Display strings) compare directly."""
+    return [(f.kind, f.gate, f.constraint, f.row, f.region, f.lookup_index, f.gate_index,
+             f.constraint_index, str(f)) for f in failures]
+
+
+# -- MockProver failures of every kind -----------------------------------------
+#
+# Each tamper edits a prover after synthesis.  The JAX package's MockProver
+# keeps the same cells, regions and markers ("unassigned" in both), so a test
+# applies the same edit to both packages' provers.
+
+
+def bump_mult_output(prover):
+    """StandardPlonkCircuit: one more in the first assigned cell of advice c
+    (the product's output, copy-constrained)."""
+    row = next(r for r, v in enumerate(prover.advice[3]) if isinstance(v, int) and v)
+    prover.advice[3][row] = (prover.advice[3][row] + 1) % prover.spec.p
+
+
+def poison_first_row(prover):
+    """StandardPlonkCircuit: sf = 1 at row 0, where the gate's e@-1 reads
+    row n-1, a poisoned blinding row."""
+    prover.fixed[0][0] = 1
+
+
+def unassign_mul_output(prover):
+    """SimpleCircuit: drop the first "mul" region's output cell from its
+    region and its column."""
+    row = min(prover.regions[2].rows) + 1
+    for region in prover.regions:
+        region.cells = {(c, r) for c, r in region.cells
+                        if not (c.kind == ADVICE and c.index == 0 and r == row)}
+    prover.advice[0][row] = UNASSIGNED
+
+
+def failure_cases(frontend, value) -> dict:
+    """name -> (circuit, instances, tamper or None, the failure kinds
+    expected) for any k >= 5, built from ``frontend`` (this module or the
+    JAX package's tests/circuits.py) and its ``Value``."""
+    p = BN254_FR.p
+    a, inst, table = plonk_api_common(BN254_FR)
+    simple_inst = [[7 * pow(5, 4, p) % p]]
+    std = frontend.StandardPlonkCircuit
+    return {
+        "satisfied": (std(value.known(a), table), [[inst]], None, set()),
+        "lookup": (std(value.known((a + 1) % p), table), [[inst]], None, {"Lookup"}),
+        "constraint": (std(value.known(a), table), [[inst]], bump_mult_output,
+                       {"ConstraintNotSatisfied", "Permutation"}),
+        "poisoned": (std(value.known(a), table), [[inst]], poison_first_row,
+                     {"ConstraintPoisoned"}),
+        "permutation": (frontend.SimpleCircuit(7, value.known(6)), simple_inst, None,
+                        {"Permutation"}),
+        "cell_not_assigned": (frontend.SimpleCircuit(7, value.known(5)), simple_inst,
+                              unassign_mul_output,
+                              {"CellNotAssigned", "ConstraintNotSatisfied", "Permutation"}),
+    }
+
+
+def tamper_bench_plonk(prover, iteration: int) -> list:
+    """BenchPlonkCircuit with a = 2: add one to the a cell of the
+    ``iteration``-th raw_multiply region (region 4i, row 2i under the
+    single-pass floor planner) and return what verify() must report, as
+    (kind, row, Display string): the product gate and the copy to raw_add."""
+    region = prover.regions[4 * iteration]
+    row = min(region.rows)
+    assert region.name == "raw_multiply" and row == 2 * iteration
+    prover.advice[0][row] += 1
+    where = f"in Region {4 * iteration} ('raw_multiply') at offset 0"
+    # the cells in the gate's query order, a*sa + b*sb + a*b*sm - c*sc, with
+    # a = 3, b = 2, c = 4 and (sa, sb, sm, sc) = (0, 0, 1, 1)
+    cells = (("Advice', 0", 3), ("Fixed', 0", 0), ("Advice', 1", 2), ("Fixed', 1", 0),
+             ("Fixed', 3", 1), ("Advice', 2", 4), ("Fixed', 2", 1))
+    return [
+        ("ConstraintNotSatisfied", row,
+         f"Constraint 0 in gate 0 ('Combined add-mult') is not satisfied {where}"
+         + "".join(f"\n- Column('{c})@0 = {hex(v)}" for c, v in cells)),
+        ("Permutation", row,
+         f"Equality constraint not satisfied by cell (Column('Advice', 0), {where})"),
+    ]
