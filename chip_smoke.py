@@ -98,25 +98,43 @@ Phases, one line each, every failure raising (non-zero exit, no result line):
    keygen, prove and verify walls of (d) and (e), warm, fenced, the median of
    3; (f) the examples ``two_chip`` and ``shuffle`` prove on the card, and
    the files ``circuit_layout`` writes (into a temporary directory) hold the
-   strings the host renders.
+   strings the host renders;
+16. the gadgets, every MockProver with its columns on the card and its
+   vectorised ``verify()`` (K1) held to the per-row host path: (a) SHA-256
+   (Table16) at k=17 on "abc" and on the reference bench's 31-block message
+   (1,975 bytes from a seed) satisfied against ``hashlib``'s digest, K1
+   launched in ``verify()``; one flipped digest half-word gives the per-row
+   path's Permutation failures; (b) the 31-block circuit proved at k=17 over
+   KZG/GWC on the device SRS: a wrong instance and a flipped byte rejected,
+   keygen / prove / verify walls warm, fenced, the median of 2 after one
+   cold, then one prove's synced phases; (c) ECC on Pallas Fp: the add cases
+   (off-curve rejected), the variable-base mul at k=11 (a non-boolean bit
+   rejected), the fixed-base full-width, short (an oversized magnitude
+   rejected) and base-field-element muls (a wrong point fails synthesis),
+   and the short range check's soundness regression over IPA at k=6 (the
+   forged multiplier rejected); (d) Sinsemilla over IPA on Vesta with
+   equality on ``witness_pieces``: the commit circuit at k=11, its verifying
+   key's ``transcript_repr`` equal to the JAX package's pin
+   ``tests/data/sinsemilla_commit_ipa_k11.vk``, and the Merkle path at depth
+   32 at k=12; walls as in (b), a flipped byte rejected.
 
-Phases 6, 10, 11, 14 and 15 each zero the kernels' launch counters (and the calls of
-``limb.finv`` and ``msm_many``) just before they start and read them just
-after; K1, ``mont_pow``, ``ec_horner`` and the three MSM entries must each
-have been launched (and K2 in phases 10, 11 and 15, through ``gntt`` and the
-IPA rounds); on each, ``msm_digits``, ``ec_window_table`` and ``ec_horner``
-launches must equal the ``msm_many`` calls and ``ec_window_fold`` launches
-lie between one and three times them, and on phase 6 ``mont_pow`` launches
-must equal the ``finv`` calls and the standalone K2 / K3 launches be 0.  Then
-one JSON line with every kernel's launches by phase, error, times and bound,
-and as the last line ``{"ok": true, "device": {...}}``.  Times are CUDA-event
-times on this card, kernel and plain version measured in the same run.  A
-bound is the larger of the bytes the function must move over 3.35 TB/s and
-its 32-bit multiply-adds (136 per Montgomery product: an 8-word CIOS
-product) over the card's 32-bit integer rate (SMs x 64 lanes x the maximum
-SM clock, ``bench/roofline.py``), for this run's inputs.  No PyTorch call
-computes a Montgomery product, an EC operation or the integer chains, so
-``library_ms`` is null throughout.
+Phases 6, 10, 11, 14, 15 and 16 each zero the kernels' launch counters (and
+the calls of ``limb.finv`` and ``msm_many``) just before they start and read
+them just after; K1, ``mont_pow``, ``ec_horner`` and the three MSM entries
+must each have been launched (and K2 and ``ec_scalar_mul`` in phases 11, 15
+and 16, K2 in 10, through ``gntt`` and the IPA rounds); on each,
+``msm_digits``, ``ec_window_table`` and ``ec_horner`` launches must equal the
+``msm_many`` calls and ``ec_window_fold`` launches lie between one and three
+times them, and on phase 6 ``mont_pow`` launches must equal the ``finv`` calls
+and the standalone K2 / K3 launches be 0. Then one JSON line with every
+kernel's launches by phase, error, times and bound, and as the last line
+``{"ok": true, "device": {...}}``. Times are CUDA-event times on this card,
+kernel and plain version measured in the same run. A bound is the larger of
+the bytes the function must move over 3.35 TB/s and its 32-bit multiply-adds
+(136 per Montgomery product: an 8-word CIOS product) over the card's 32-bit
+integer rate (SMs x 64 lanes x the maximum SM clock, ``bench/roofline.py``),
+for this run's inputs. No PyTorch call computes a Montgomery product, an EC
+operation or the integer chains, so ``library_ms`` is null throughout.
 """
 
 from __future__ import annotations
@@ -1033,10 +1051,11 @@ def phase_mock_kinds(dev) -> None:
         f"Lookup failure at row {row}; {time.perf_counter() - t0:.2f} s")
 
 
-def poseidon_walls(torch, profiling, params, circuit, instances, create, verify, dev) -> tuple:
-    """keygen, prove and verify of one circuit: warm, fenced, the median of
-    3 each; then one more prove with its synced phases; (vk, proof, walls,
-    the phases)."""
+def prove_walls(torch, profiling, params, circuit, instances, create, verify, dev,
+                reps: int = 3, tag: str = "[15]") -> tuple:
+    """keygen, prove and verify of one circuit: one cold run each, then
+    ``reps`` warm, fenced walls, the median reported; then one more prove with
+    its synced phases; (vk, proof, walls, the phases)."""
     from halo2_tpu_torch.bench.full import warm_walls
     from halo2_tpu_torch.plonk import keygen_pk, keygen_vk
 
@@ -1044,11 +1063,11 @@ def poseidon_walls(torch, profiling, params, circuit, instances, create, verify,
         vk = keygen_vk(params, circuit.without_witnesses())
         return vk, keygen_pk(params, vk, circuit.without_witnesses())
 
-    (vk, pk), kw = warm_walls(keygen, 3, dev)
-    proof, pw = warm_walls(lambda: create(pk), 3, dev)
-    ok, vw = warm_walls(lambda: verify(vk, proof, instances), 3, dev)
+    (vk, pk), kw = warm_walls(keygen, reps, dev)
+    proof, pw = warm_walls(lambda: create(pk), reps, dev)
+    ok, vw = warm_walls(lambda: verify(vk, proof, instances), reps, dev)
     if ok is not True:
-        raise AssertionError("[15] a Poseidon proof was rejected")
+        raise AssertionError(f"{tag} a proof was rejected")
     walls = {name: {"median_s": statistics.median(w), "samples_s": w}
              for name, w in (("keygen", kw), ("prove", pw), ("verify", vw))}
     profiling.report(reset=True)
@@ -1102,8 +1121,8 @@ def phase_poseidon(torch, profiling, smi: str, dev) -> dict:
             return verify_proof(params, vk, instances, Blake2bTranscript(curve, proof), verify_mo,
                                 strategy=strategy(), **opts)
 
-        vk, proof, walls, phases = poseidon_walls(torch, profiling, params, circuit, [[[digest]]],
-                                                  create, verify, dev)
+        vk, proof, walls, phases = prove_walls(torch, profiling, params, circuit, [[[digest]]],
+                                               create, verify, dev)
         if name == "gwc_bn254":
             if proof != expected:
                 raise AssertionError("[15] the K=7 Poseidon GWC proof differs from its pin")
@@ -1153,6 +1172,348 @@ def phase_examples(dev) -> None:
                     raise AssertionError(f"[15] circuit_layout's {fname} differs from the host's "
                                          f"render")
     log("[15] (f) circuit_layout: layout.svg and circuit.dot == the host's render")
+
+
+def mock_on_card(torch, counted, spec, k, circuit, instances, dev, tag, tamper=None) -> dict:
+    """MockProver.run with the columns on the card, then the vectorised
+    ``verify()`` (K1 on the card) and the per-row host path on the same
+    prover: their failure lists, Display strings included, must be equal."""
+    from halo2_tpu_torch.dev import MockProver
+    from torch_circuits import failure_summary
+
+    t0 = time.perf_counter()
+    prover = MockProver.run(spec, k, circuit, instances, device=dev)
+    res = {"k": k, "run_s": time.perf_counter() - t0}
+    if tamper is not None:
+        tamper(prover)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = counted["mont_mul"].launches
+    t0 = time.perf_counter()
+    card = failure_summary(prover.verify(vectorized=True))
+    torch.cuda.synchronize()
+    res["verify_s"] = time.perf_counter() - t0
+    res["k1_launches_in_verify"] = counted["mont_mul"].launches - before
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if res["k1_launches_in_verify"] <= 0:
+        raise AssertionError(f"{tag} MockProver.verify() launched no K1")
+    t0 = time.perf_counter()
+    host = failure_summary(prover.verify(vectorized=False))
+    res["verify_per_row_s"] = time.perf_counter() - t0
+    if card != host:
+        raise AssertionError(f"{tag} the card's failures differ from the per-row host path's: "
+                             f"{card[:2]} != {host[:2]}")
+    res["failures"] = card
+    return res
+
+
+def verify_stages(torch, prover) -> tuple:
+    """The vectorised ``verify()`` stage by stage, in its own order, fenced:
+    the assigned-cell check and the copies on the host, the gates on the
+    card, the lookups' table and inputs evaluated on the card and matched
+    as a host set over the usable rows.  Returns the seconds of each and the
+    failures, which must equal ``verify()``'s."""
+    failures, secs = [], {}
+    t0 = time.perf_counter()
+    prover._check_cells_assigned(failures)
+    secs["cells_assigned_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cols = prover._verify_gates_vec(failures)
+    torch.cuda.synchronize()
+    secs["gates_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prover._verify_lookups_vec(failures, cols)
+    secs["lookups_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prover._check_copies(failures)
+    secs["copies_s"] = time.perf_counter() - t0
+    return secs, failures
+
+
+def phase_sha256_mock(torch, counted, dev, k: int = 17) -> dict:
+    """SHA-256 (Table16) under MockProver at k=17 with its columns on the
+    card: "abc" and the reference bench's 31-block message are satisfied
+    against hashlib's digest; one flipped digest half-word gives the per-row
+    path's failure list."""
+    from halo2_tpu_torch.dev import MockProver
+    from halo2_tpu_torch.fields.spec import BN254_FR
+    from halo2_tpu_torch.gadgets.sha256 import pad_message
+    from torch_circuits import Sha256Circuit, failure_summary, sha256_bench_message, sha256_instance
+
+    res = {}
+    for name, msg, blocks in (("abc", b"abc", 1), ("bench_31_blocks", sha256_bench_message(), 31)):
+        if len(pad_message(msg)) != blocks:
+            raise AssertionError(f"[16] SHA-256 {name}: not {blocks} blocks")
+        t0 = time.perf_counter()
+        prover = MockProver.run(BN254_FR, k, Sha256Circuit.of(msg), [sha256_instance(msg)],
+                                device=dev)
+        r = {"k": k, "blocks": blocks, "run_s": time.perf_counter() - t0}
+        cols = prover._vec_columns()
+        if not all(v.is_cuda and m.is_cuda for group in cols for v, m in group):
+            raise AssertionError("[16] the vectorised MockProver columns are not on the card")
+        del cols
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = counted["mont_mul"].launches
+        t0 = time.perf_counter()
+        failures = prover.verify()
+        torch.cuda.synchronize()
+        r["verify_s"] = time.perf_counter() - t0
+        r["k1_launches_in_verify"] = counted["mont_mul"].launches - before
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if failures:
+            raise AssertionError(f"[16] SHA-256 {name} k={k}: {len(failures)} failures, first "
+                                 f"{failures[0]}")
+        if r["k1_launches_in_verify"] <= 0:
+            raise AssertionError(f"[16] SHA-256 {name}: MockProver.verify() launched no K1")
+        stages, again = verify_stages(torch, prover)
+        if again:
+            raise AssertionError(f"[16] SHA-256 {name}: verify()'s stages found {again[0]}")
+        r["verify_stages"] = stages
+        res[name] = r
+        log(f"[16] (a) SHA-256 {name} ({blocks} block{'s' * (blocks > 1)}) k={k} MockProver, "
+            f"columns on the card: run {r['run_s']:.2f} s, verify() {r['verify_s']:.3f} s with "
+            f"{r['k1_launches_in_verify']} K1 launches, peak device memory {r['peak_gib']:.3f} GiB; "
+            f"satisfied against hashlib's digest; its stages again (s): "
+            + ", ".join(f"{key[:-2]} {v:.3f}" for key, v in stages.items()))
+    bad = sha256_instance(b"abc")
+    bad[0] ^= 1
+    prover = MockProver.run(BN254_FR, k, Sha256Circuit.of(b"abc"), [bad], device=dev)
+    t0 = time.perf_counter()
+    card = failure_summary(prover.verify())
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = failure_summary(prover.verify(vectorized=False))
+    host_s = time.perf_counter() - t0
+    if card != host or {f[0] for f in card} != {"Permutation"}:
+        raise AssertionError(f"[16] SHA-256 wrong digest: the card's {card[:2]} != the per-row "
+                             f"path's {host[:2]}, or not Permutation failures")
+    res["wrong_digest"] = {"verify_s": card_s, "verify_per_row_s": host_s, "failures": len(card)}
+    log(f"[16] (a) SHA-256 \"abc\" with one digest half-word flipped: the card's {len(card)} "
+        f"Permutation failures ({card_s:.3f} s) == the per-row host path's ({host_s:.2f} s), "
+        f"strings included")
+    return res
+
+
+def phase_sha256_prove(torch, profiling, smi: str, dev, k: int = 17, reps: int = 2) -> dict:
+    """The SHA-256 circuit on the reference bench's 31-block message at k=17
+    over KZG/GWC with a Blake2b transcript, on the device SRS; its instance is
+    hashlib's digest.  A wrong instance and a flipped byte are rejected."""
+    from halo2_tpu_torch.curves.spec import BN254_G1
+    from halo2_tpu_torch.plonk import create_proof, verify_proof
+    from halo2_tpu_torch.poly.kzg import ParamsKZG
+    from halo2_tpu_torch.poly.multiopen_gwc import gwc_create_proof, gwc_verify_proof
+    from halo2_tpu_torch.transcript import Blake2bTranscript
+    from halo2_tpu_torch.utils.rng import FieldRng
+    from torch_circuits import Sha256Circuit, sha256_bench_message, sha256_instance
+
+    msg = sha256_bench_message()
+    instances = [[sha256_instance(msg)]]
+    spec = BN254_G1.scalar
+    t0 = time.perf_counter()
+    params = ParamsKZG.setup(k, seed=b"sha256-k17", device=dev)
+    params.s = None  # drop the toxic waste: verify runs the real pairing
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    circuit = Sha256Circuit.of(msg)
+
+    def create(pk):
+        return create_proof(params, pk, [circuit], instances, FieldRng(spec, b"sha256-rng"),
+                            Blake2bTranscript(BN254_G1), gwc_create_proof)
+
+    def verify(vk, proof, inst):
+        return verify_proof(params, vk, inst, Blake2bTranscript(BN254_G1, proof), gwc_verify_proof)
+
+    torch.cuda.reset_peak_memory_stats()
+    vk, proof, walls, phases = prove_walls(torch, profiling, params, circuit, instances, create,
+                                           verify, dev, reps=reps, tag="[16] (b)")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    bad = [[list(instances[0][0])]]
+    bad[0][0][0] ^= 1
+    if verify(vk, proof, bad):
+        raise AssertionError("[16] (b) the SHA-256 proof accepted a wrong instance")
+    if not rejects_flipped(lambda pr: verify(vk, pr, instances), proof, len(proof) // 2):
+        raise AssertionError("[16] (b) the SHA-256 proof accepted a flipped byte")
+    log(f"[16] (b) SHA-256 31 blocks k={k} BN254 KZG/GWC: device SRS {setup_s:.2f} s; proof "
+        f"{len(proof)} B verified through the real pairing; wrong instance and flipped byte "
+        f"rejected; warm fenced median of {reps} after one cold (s): "
+        + ", ".join(f"{w} {walls[w]['median_s']:.3f}" for w in ("keygen", "prove", "verify"))
+        + f"; peak device memory {peak_gib:.3f} GiB; {smi}")
+    log_walls("[16] (b)", {w: walls[w]["median_s"] for w in walls}, phases)
+    return {"k": k, "setup_s": setup_s, "proof_bytes": len(proof), "peak_gib": peak_gib, **walls,
+            "prove_phases": [list(p) for p in phases]}
+
+
+def phase_ecc_mock(torch, counted, dev) -> dict:
+    """The ECC gadget on Pallas Fp under MockProver, the vectorised check on
+    the card against the per-row path: the add cases at k=5 (off-curve
+    rejected), the variable-base mul at k=11 (a 2 in the bit column fails
+    "bit boolean"), the fixed-base full-width and short muls at k=9 (an
+    oversized short magnitude rejected) and the base-field-element mul at
+    k=11 (a wrong point fails its synthesis); then the short range check's
+    soundness regression over IPA at k=6: honest verifies, forged rejected."""
+    import torch_circuits as tc
+    from halo2_tpu_torch.circuit import Value
+    from halo2_tpu_torch.curves import host
+    from halo2_tpu_torch.curves.spec import PALLAS
+    from halo2_tpu_torch.dev import MockProver
+    from halo2_tpu_torch.fields.spec import PASTA_FP
+    from halo2_tpu_torch.gadgets.ecc.mul_fixed import FQ
+
+    t0 = time.perf_counter()
+    cases = [(f"add {name}", 5, circuit, None, name == "off_curve")
+             for name, circuit in tc.add_cases().items()]
+    mul = tc.MulCircuit(Value.known(tc.VAR_MUL_SCALAR), Value.known(tc.G),
+                        host.mul(PALLAS, tc.G, tc.VAR_MUL_SCALAR))
+    cases += [("variable-base mul", 11, mul, None, False),
+              ("variable-base mul, bit 2", 11, mul, tc.flip_mul_bit, True),
+              ("fixed-base full width", 9, tc.fixed_mul_full(0xABCDEF0123456789), None, False),
+              ("fixed-base full width q-1", 9, tc.fixed_mul_full(FQ - 1), None, False),
+              ("fixed-base full width 2^254+", 9, tc.fixed_mul_full((1 << 254) + 12345), None,
+               False),
+              ("fixed-base short +", 9, tc.fixed_mul_short(0xFFFFFFFFFFFFFFFF, 1), None, False),
+              ("fixed-base short -", 9, tc.fixed_mul_short(12345678, -1), None, False),
+              ("fixed-base short oversized", 9, tc.FixedMulCircuit(
+                  Value.known(((1 << 64) + 3, 1)), None, short=True), None, True),
+              ("base-field element", 11, tc.BaseFieldMulCircuit.of(0x123456789ABCDEF), None,
+               False),
+              ("base-field element p-1", 11, tc.BaseFieldMulCircuit.of(PASTA_FP.p - 1), None,
+               False)]
+    res = {}
+    for name, k, circuit, tamper, rejected in cases:
+        r = mock_on_card(torch, counted, PASTA_FP, k, circuit, [], dev, f"[16] (c) {name}", tamper)
+        if bool(r["failures"]) != rejected:
+            raise AssertionError(f"[16] (c) {name}: {len(r['failures'])} failures, expected "
+                                 f"{'some' if rejected else 'none'}")
+        if tamper is tc.flip_mul_bit and ("ConstraintNotSatisfied", "bit boolean") not in {
+                (f[0], f[2]) for f in r["failures"]}:
+            raise AssertionError("[16] (c) the flipped bit did not fail \"bit boolean\"")
+        res[name] = {k_: v for k_, v in r.items() if k_ != "failures"} | {
+            "failures": len(r["failures"])}
+        log(f"[16] (c) ECC {name} k={k}: {'rejected, ' if rejected else 'satisfied, '}"
+            f"the card's {len(r['failures'])} failures == the per-row path's; run "
+            f"{r['run_s']:.2f} s, verify() {r['verify_s']:.3f} s ({r['k1_launches_in_verify']} "
+            f"K1), per row {r['verify_per_row_s']:.2f} s")
+    try:
+        MockProver.run(PASTA_FP, 11, tc.BaseFieldMulCircuit.of(67890, host.mul(
+            PALLAS, tc.FIXED_BASE, 12345)), [], device=dev)
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError("[16] (c) the base-field mul accepted a wrong point")
+    res["soundness_ipa_k6"] = phase_soundness(dev)
+    log(f"[16] (c) base-field element with a wrong point: synthesis rejects it; ECC "
+        f"{time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def phase_soundness(dev) -> dict:
+    """tests/test_soundness_regressions.py on the card: the short range
+    check at k=6 over IPA (Pallas, seeded SRS); the honest proof verifies, the
+    forged multiplier's proof is rejected."""
+    import torch_circuits as tc
+    from halo2_tpu_torch.circuit import Value
+    from halo2_tpu_torch.plonk import create_proof, keygen_pk, keygen_vk, verify_proof
+    from halo2_tpu_torch.poly.ipa import IPASingleStrategy, ParamsIPA
+    from halo2_tpu_torch.poly.multiopen_ipa import ipa_create_proof, ipa_verify_proof
+    from halo2_tpu_torch.transcript import Blake2bTranscript
+    from halo2_tpu_torch.utils.rng import FieldRng
+
+    t0 = time.perf_counter()
+    params = ParamsIPA.setup(6, seed=b"soundness-test", device=dev)
+    empty = tc.ShortCheckCircuit(Value.unknown())
+    vk = keygen_vk(params, empty)
+    pk = keygen_pk(params, vk, empty)
+    verdicts = {}
+    for name, circuit in (("honest", tc.ShortCheckCircuit(Value.known(5))),
+                          ("forged", tc.ForgedShortCheckCircuit(Value.unknown()))):
+        proof = create_proof(params, pk, [circuit], [[]],
+                             FieldRng(params.curve.scalar, b"soundness-rng"),
+                             Blake2bTranscript(params.curve), ipa_create_proof,
+                             query_instance=True)
+        verdicts[name] = verify_proof(params, vk, [[]], Blake2bTranscript(params.curve, proof),
+                                      ipa_verify_proof, query_instance=True,
+                                      strategy=IPASingleStrategy(params))
+    if verdicts != {"honest": True, "forged": False}:
+        raise AssertionError(f"[16] (c) soundness regression: {verdicts}")
+    wall = time.perf_counter() - t0
+    log(f"[16] (c) short range check k=6 over IPA: honest proof verifies, forged multiplier "
+        f"rejected; {wall:.2f} s")
+    return {"wall_s": wall}
+
+
+def sinsemilla_cell(torch, counted, profiling, smi: str, dev, name: str, k: int, circuit,
+                    seed: bytes, reps: int = 2) -> tuple:
+    """One Sinsemilla circuit with equality on ``witness_pieces``, on Pallas
+    Fp over IPA on Vesta (the reference's SRS): MockProver (card == host)
+    satisfied, then keygen, prove and verify with their walls; a flipped byte
+    rejected.  (the cell's numbers, the verifying key)."""
+    from halo2_tpu_torch.curves.spec import VESTA
+    from halo2_tpu_torch.fields.spec import PASTA_FP
+    from halo2_tpu_torch.plonk import create_proof, verify_proof
+    from halo2_tpu_torch.poly.ipa import IPASingleStrategy, ParamsIPA
+    from halo2_tpu_torch.poly.multiopen_ipa import ipa_create_proof, ipa_verify_proof
+    from halo2_tpu_torch.transcript import Blake2bTranscript
+    from halo2_tpu_torch.utils.rng import FieldRng
+
+    tag = f"[16] (d) {name}"
+    mock = mock_on_card(torch, counted, PASTA_FP, k, circuit, [], dev, tag)
+    if mock["failures"]:
+        raise AssertionError(f"{tag}: MockProver not satisfied")
+    t0 = time.perf_counter()
+    params = ParamsIPA.setup(k, VESTA, device=dev)  # the reference's "Halo2-Parameters"
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def create(pk):
+        return create_proof(params, pk, [circuit], [[]], FieldRng(VESTA.scalar, seed),
+                            Blake2bTranscript(VESTA), ipa_create_proof, query_instance=True)
+
+    def verify(vk, proof, inst):
+        return verify_proof(params, vk, inst, Blake2bTranscript(VESTA, proof), ipa_verify_proof,
+                            query_instance=True, strategy=IPASingleStrategy(params))
+
+    torch.cuda.reset_peak_memory_stats()
+    vk, proof, walls, phases = prove_walls(torch, profiling, params, circuit, [[]], create, verify,
+                                           dev, reps=reps, tag=tag)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if not rejects_flipped(lambda pr: verify(vk, pr, [[]]), proof, len(proof) // 2):
+        raise AssertionError(f"{tag}: a flipped byte was accepted")
+    log(f"{tag} k={k} over Vesta IPA: MockProver satisfied (run {mock['run_s']:.2f} s, the "
+        f"card's verify() {mock['verify_s']:.3f} s == per row); SRS {setup_s:.2f} s; proof "
+        f"{len(proof)} B verified, flipped byte rejected; warm fenced median of {reps} after "
+        f"one cold (s): "
+        + ", ".join(f"{w} {walls[w]['median_s']:.3f}" for w in ("keygen", "prove", "verify"))
+        + f"; peak device memory {peak_gib:.3f} GiB; {smi}")
+    log_walls(tag, {w: walls[w]["median_s"] for w in walls}, phases)
+    return {"k": k, "setup_s": setup_s, "proof_bytes": len(proof), "peak_gib": peak_gib,
+            "mock_run_s": mock["run_s"], "mock_verify_s": mock["verify_s"],
+            "prove_phases": [list(p) for p in phases], **walls}, vk
+
+
+def phase_sinsemilla(torch, counted, profiling, smi: str, dev) -> dict:
+    """Sinsemilla on Pallas Fp over IPA on Vesta: the commit circuit
+    (Sinsemilla hash + ECC fixed-base mul) at k=11, its verifying key's
+    ``transcript_repr`` equal to the JAX package's pin
+    ``sinsemilla_commit_ipa_k11.vk``; the Merkle path at depth 32 (the
+    reference's MERKLE_DEPTH) at k=12."""
+    import torch_circuits as tc
+
+    with open(os.path.join(HERE, "tests", "data", "sinsemilla_commit_ipa_k11.vk")) as f:
+        expected = int(f.read().strip(), 16)  # a missing pin fails: never re-pinned
+    res = {}
+    res["commit"], vk = sinsemilla_cell(torch, counted, profiling, smi, dev, "commit", 11,
+                                        tc.ProvedCommitCircuit.of(), b"sinsemilla-rng")
+    if vk.transcript_repr != expected:
+        raise AssertionError(f"[16] (d) the Sinsemilla commit vk's transcript_repr "
+                             f"{vk.transcript_repr:#x} differs from its pin {expected:#x}")
+    log(f"[16] (d) commit: the verifying key's transcript_repr == the JAX package's pin "
+        f"({expected:#x})")
+    res["merkle_depth32"], _ = sinsemilla_cell(torch, counted, profiling, smi, dev,
+                                               "merkle_depth32", 12, tc.ProvedMerkleCircuit.of(32),
+                                               b"merkle-rng")
+    return res
 
 
 def main() -> None:
@@ -1404,14 +1765,31 @@ def main() -> None:
     log(f"[15] dev tools, Poseidon and examples: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"mock_prover_k17": mock_k17, "poseidon_k7": poseidon}))
 
+    # ---- 16: the gadgets: SHA-256 (Table16), ECC, Sinsemilla ----------------------
+    t0 = time.perf_counter()
+    start_counting(torch, counted, calls.values())
+    sha256_mock = phase_sha256_mock(torch, counted, dev)
+    t1 = time.perf_counter()
+    sha256_proof = phase_sha256_prove(torch, profiling, smi, dev)
+    sha256_proof["phase_s"] = time.perf_counter() - t1
+    ecc = phase_ecc_mock(torch, counted, dev)
+    sinsemilla = phase_sinsemilla(torch, counted, profiling, smi, dev)
+    launches16 = read_counts(torch, counted, "[16]", calls,
+                             PATH_KERNELS + ("ec_add", "ec_scalar_mul"))
+    check_msm_launches("[16]", launches16, calls)
+    log(f"[16] SHA-256, ECC and Sinsemilla: {time.perf_counter() - t0:.1f} s "
+        f"((b) {sha256_proof['phase_s']:.1f} s)")
+    log(json.dumps({"sha256_mock_k17": sha256_mock, "sha256_gwc_k17": sha256_proof, "ecc": ecc,
+                    "sinsemilla_ipa": sinsemilla}))
+
     def main_path(name):
-        """A prove-path kernel's launches in phases 6, 10, 11, 14 and 15."""
+        """A prove-path kernel's launches in phases 6, 10, 11, 14, 15 and 16."""
         by_phase = {"6": launches[name], "10": launches10[name], "11": launches11[name],
-                    "14": launches14[name], "15": launches15[name]}
+                    "14": launches14[name], "15": launches15[name], "16": launches16[name]}
         return {"launches": sum(by_phase.values()), "launches_by_phase": by_phase}
 
     def roofline_path(name):
-        """A roofline kernel's launches (phase 8); phases 6, 10, 11, 14 and 15 run none."""
+        """A roofline kernel's launches (phase 8); phases 6, 10, 11, 14, 15 and 16 run none."""
         return {"launches": roof_launches[name],
                 "launches_by_phase": {**main_path(name)["launches_by_phase"],
                                       "8": roof_launches[name]}}

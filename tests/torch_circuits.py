@@ -18,18 +18,55 @@ The gadget circuits are copies of the JAX package's test circuits:
 where the last is named ``LookupRangeCircuit``), and Poseidon's
 ``HashCircuit`` (tests/test_poseidon.py, pow5.rs) with ``PastaHashCircuit``,
 its P128Pow5T3 over Pallas Fp: the reference's benches/poseidon.rs circuit.
+The SHA-256, ECC, Sinsemilla and soundness circuits are copies of those of
+tests/test_sha256.py, test_ecc_gadget.py, test_ecc_mul_fixed.py,
+test_sinsemilla.py (its ``HashCircuit`` is ``SinsemillaHashCircuit`` here) and
+test_soundness_regressions.py, each with an ``of`` constructor for the inputs
+those tests use.
 """
 
-from halo2_tpu_torch.circuit import Circuit, V1FloorPlanner, Value
+import functools
+import hashlib
+import random
+
+import numpy as np
+
+from halo2_tpu_torch.circuit import Circuit, SimpleFloorPlanner, V1FloorPlanner, Value
+from halo2_tpu_torch.curves import PALLAS, host
 from halo2_tpu_torch.dev.mock_prover import UNASSIGNED
 from halo2_tpu_torch.entry import EntryCircuit  # noqa: F401  (the pinned k=6 proof's circuit)
 from halo2_tpu_torch.examples.shuffle import ShuffleCircuit, shuffled_copy  # noqa: F401
 from halo2_tpu_torch.fields.spec import BN254_FR, PASTA_FP
+from halo2_tpu_torch.gadgets.ecc import EccChip
+from halo2_tpu_torch.gadgets.ecc.mul_fixed import FQ, MulFixedChip
 from halo2_tpu_torch.gadgets.poseidon import ConstantLength, PoseidonHashGadget, Pow5Chip, p128_pow5_t3
+from halo2_tpu_torch.gadgets.sha256 import (
+    Sha256,
+    SpreadTableChip,
+    Table16Chip,
+    get_tag,
+    pad_message,
+    spread_u16,
+)
+from halo2_tpu_torch.gadgets.sinsemilla import primitives as sinsemilla_prim
+from halo2_tpu_torch.gadgets.sinsemilla.chip import K as SINSEMILLA_K
+from halo2_tpu_torch.gadgets.sinsemilla.chip import (
+    CommitDomainGadget,
+    HashDomainGadget,
+    SinsemillaChip,
+    message_from_bitstring,
+)
+from halo2_tpu_torch.gadgets.sinsemilla.chip import _ev as sinsemilla_ev
+from halo2_tpu_torch.gadgets.sinsemilla.merkle import (
+    MERKLE_CRH_PERSONALIZATION,
+    MerkleChip,
+    MerklePath,
+)
 from halo2_tpu_torch.gadgets.utilities import (
     CondSwapChip,
     LookupRangeCheckConfig,
     RunningSumConfig,
+    i2lebsp,
     load_private,
 )
 from halo2_tpu_torch.plonk.circuit import ADVICE, Constant
@@ -632,3 +669,491 @@ def tamper_bench_plonk(prover, iteration: int) -> list:
         ("Permutation", row,
          f"Equality constraint not satisfied by cell (Column('Advice', 0), {where})"),
     ]
+
+
+# -- SHA-256 (Table16) -----------------------------------------------------------
+#
+# Copies of tests/test_sha256.py's ``Sha256Circuit`` and ``SmallSpreadCircuit``.
+
+SHA256_BENCH_BYTES = 1975  # 1975 + 1 + 8 = 31 * 64: the reference bench's 31 blocks
+
+
+def sha256_bench_message(seed: int = 31) -> bytes:
+    """The message of the reference's benches/sha256.rs length, from a seed."""
+    return np.random.default_rng(seed).integers(0, 256, SHA256_BENCH_BYTES, dtype=np.uint8).tobytes()
+
+
+def sha256_instance(msg: bytes) -> list:
+    """The 16 half-words (lo, hi of each digest word) of ``hashlib.sha256``."""
+    digest = hashlib.sha256(msg).digest()
+    halves = []
+    for i in range(8):
+        w = int.from_bytes(digest[4 * i: 4 * i + 4], "big")
+        halves += [w & 0xFFFF, w >> 16]
+    return halves
+
+
+class Sha256Circuit(Circuit):
+    """Hash the padded blocks; digest half-words exposed as the instance."""
+
+    def __init__(self, blocks):
+        self.blocks = blocks  # list of 16-element lists of Value
+
+    @classmethod
+    def of(cls, msg: bytes):
+        return cls([[Value.known(w) for w in blk] for blk in pad_message(msg)])
+
+    def without_witnesses(self):
+        return Sha256Circuit([[Value.unknown() for _ in b] for b in self.blocks])
+
+    @classmethod
+    def configure(cls, meta):
+        config = Table16Chip.configure(meta)
+        instance = meta.instance_column()
+        meta.enable_equality(instance)
+        return config, instance
+
+    def synthesize(self, config, layouter):
+        table_config, instance = config
+        chip = Table16Chip(table_config)
+        Table16Chip.load(table_config, layouter)
+        hasher = Sha256(chip, layouter)
+        for block in self.blocks:
+            hasher.process_block(block)
+        for i, word in enumerate(hasher.digest()):
+            layouter.constrain_instance(word.lo.dense.cell, instance, 2 * i)
+            layouter.constrain_instance(word.hi.dense.cell, instance, 2 * i + 1)
+
+
+class SmallSpreadCircuit(Circuit):
+    """The spread-table chip with a truncated table (8-bit dense values)."""
+
+    TABLE_BITS = 8
+
+    def __init__(self, word):
+        self.word = word
+
+    def without_witnesses(self):
+        return SmallSpreadCircuit(Value.unknown())
+
+    @classmethod
+    def configure(cls, meta):
+        tag = meta.advice_column()
+        dense = meta.advice_column()
+        spread = meta.advice_column()
+        return SpreadTableChip.configure(meta, tag, dense, spread)
+
+    def synthesize(self, config, layouter):
+        chip = SpreadTableChip(config)
+
+        def do(table):
+            for d in range(1 << self.TABLE_BITS):
+                table.assign_cell(config.table_tag, d, lambda v=d: get_tag(v))
+                table.assign_cell(config.table_dense, d, lambda v=d: v)
+                table.assign_cell(config.table_spread, d, lambda v=d: spread_u16(v))
+
+        layouter.get_root().assign_table("spread table", do)
+        layouter.namespace("word").assign_region("word", lambda region: chip.assign_word(
+            region, 0, self.word))
+
+
+# -- ECC ---------------------------------------------------------------------------
+#
+# Copies of tests/test_ecc_gadget.py's ``AddCircuit`` and ``MulCircuit`` and
+# tests/test_ecc_mul_fixed.py's ``FixedMulCircuit``, ``BaseFieldMulCircuit``.
+
+G = host.generator(PALLAS)
+G2 = host.double(PALLAS, G)
+G3 = host.add(PALLAS, G2, G)
+FIXED_BASE = host.mul(PALLAS, G, 0xDEADBEEF)  # tests/test_ecc_mul_fixed.py's BASE
+VAR_MUL_SCALAR = 0x0ACE1234DEADBEEF5A5A5A5AC0FFEE0123456789ABCDEF0102030405060708
+
+
+class AddCircuit(Circuit):
+    def __init__(self, p, q, expected, complete=True):
+        self.p, self.q, self.expected, self.complete = p, q, expected, complete
+
+    @classmethod
+    def of(cls, p, q, expected, complete=True):
+        """The identity is witnessed as the (0, 0) sentinel."""
+        return cls(Value.known((0, 0) if p is None else p), Value.known((0, 0) if q is None else q),
+                   expected, complete)
+
+    def without_witnesses(self):
+        return AddCircuit(Value.unknown(), Value.unknown(), self.expected, self.complete)
+
+    @classmethod
+    def configure(cls, meta):
+        advices = [meta.advice_column() for _ in range(9)]
+        return EccChip.configure(meta, advices)
+
+    def synthesize(self, config, layouter):
+        chip = EccChip(config)
+        p = chip.witness_point(layouter, self.p)
+        q = chip.witness_point(layouter, self.q)
+        r = chip.add(layouter, p, q) if self.complete else chip.add_incomplete(layouter, p, q)
+        if not r.x.value.is_none() and self.expected is not None:
+            got = r.value().value()
+            assert got == self.expected, (got, self.expected)
+
+
+def add_cases() -> dict:
+    """name -> AddCircuit of tests/test_ecc_gadget.py's add cases."""
+    bad = (G[0], (G[1] + 1) % PASTA_FP.p)
+    return {
+        "incomplete": AddCircuit.of(G, G2, G3, complete=False),
+        "distinct": AddCircuit.of(G, G2, G3),
+        "doubling": AddCircuit.of(G, G, G2),
+        "identity_left": AddCircuit.of(None, G, G),
+        "identity_right": AddCircuit.of(G, None, G),
+        "inverse": AddCircuit.of(G, host.neg(PALLAS, G), None),
+        "off_curve": AddCircuit(Value.known(bad), Value.known(G2), None),
+    }
+
+
+class MulCircuit(Circuit):
+    """Variable-base scalar mul; the result checked against host.mul."""
+
+    def __init__(self, scalar, base, expected):
+        self.scalar, self.base, self.expected = scalar, base, expected
+
+    def without_witnesses(self):
+        return MulCircuit(Value.unknown(), Value.unknown(), self.expected)
+
+    @classmethod
+    def configure(cls, meta):
+        advices = [meta.advice_column() for _ in range(9)]
+        constants = meta.fixed_column()
+        meta.enable_constant(constants)
+        return EccChip.configure(meta, advices)
+
+    def synthesize(self, config, layouter):
+        chip = EccChip(config)
+        base = chip.witness_point(layouter, self.base)
+        result, z = chip.mul(layouter, self.scalar, base)
+        if not result.x.value.is_none() and self.expected is not None:
+            got = result.value().value()
+            assert got == self.expected, (got, self.expected)
+            assert z.value.value() == self.scalar.value()
+
+
+def flip_mul_bit(prover):
+    """MulCircuit: a 2 in the bit column (advice 4) at the first row of
+    "mul step 5", which the "bit boolean" constraint rejects."""
+    step_region = next(r for r in prover.regions if r.name.startswith("mul step 5"))
+    prover.advice[4][min(step_region.rows)] = 2
+
+
+class FixedMulCircuit(Circuit):
+    def __init__(self, scalar, expected, short=False):
+        self.scalar, self.expected, self.short = scalar, expected, short
+
+    def without_witnesses(self):
+        return FixedMulCircuit(Value.unknown(), self.expected, self.short)
+
+    @classmethod
+    def configure(cls, meta):
+        advices = [meta.advice_column() for _ in range(11)]
+        constants = meta.fixed_column()
+        meta.enable_constant(constants)
+        ecc = EccChip.configure(meta, advices[:9])
+        return MulFixedChip.configure(meta, ecc, advices[9], advices[10])
+
+    def synthesize(self, config, layouter):
+        chip = MulFixedChip(config)
+        if self.short:
+            r = chip.mul_short(layouter, self.scalar, FIXED_BASE)
+        else:
+            r = chip.mul_full_width(layouter, self.scalar, FIXED_BASE)
+        if not r.x.value.is_none() and self.expected is not None:
+            got = r.value().value()
+            assert got == self.expected, (got, self.expected)
+
+
+def fixed_mul_full(scalar: int) -> FixedMulCircuit:
+    return FixedMulCircuit(Value.known(scalar), host.mul(PALLAS, FIXED_BASE, scalar % FQ))
+
+
+def fixed_mul_short(magnitude: int, sign: int) -> FixedMulCircuit:
+    return FixedMulCircuit(Value.known((magnitude, sign)),
+                           host.mul(PALLAS, FIXED_BASE, magnitude * sign % FQ), short=True)
+
+
+class BaseFieldMulCircuit(Circuit):
+    """mul_base_field with its canonicity checks."""
+
+    def __init__(self, alpha, expected):
+        self.alpha, self.expected = alpha, expected
+
+    @classmethod
+    def of(cls, alpha: int, expected=None):
+        return cls(Value.known(alpha), host.mul(PALLAS, FIXED_BASE, alpha % FQ)
+                   if expected is None else expected)
+
+    def without_witnesses(self):
+        return BaseFieldMulCircuit(Value.unknown(), self.expected)
+
+    @classmethod
+    def configure(cls, meta):
+        advices = [meta.advice_column() for _ in range(15)]
+        constants = meta.fixed_column()
+        meta.enable_constant(constants)
+        table_idx = meta.lookup_table_column()
+        lookup = LookupRangeCheckConfig.configure(meta, advices[14], table_idx, 10, PASTA_FP)
+        ecc = EccChip.configure(meta, advices[:9])
+        config = MulFixedChip.configure(meta, ecc, advices[9], advices[10])
+        return MulFixedChip.configure_base_field(meta, config, advices[11:14], lookup)
+
+    def synthesize(self, config, layouter):
+        config.lookup_config.load(layouter)
+        chip = MulFixedChip(config)
+        alpha_cell = load_private(layouter, config.canon_advices[0], self.alpha)
+        r = chip.mul_base_field(layouter, alpha_cell, FIXED_BASE)
+        if not r.x.value.is_none() and self.expected is not None:
+            got = r.value().value()
+            assert got == self.expected, (got, self.expected)
+
+
+# -- Sinsemilla ----------------------------------------------------------------------
+#
+# Copies of tests/test_sinsemilla.py's ``HashCircuit`` (here
+# ``SinsemillaHashCircuit``), ``MerkleCircuit`` and ``CommitCircuit``.  Their
+# messages are witnessed on ``witness_pieces`` and copied into the hash
+# region; the JAX tests' circuits leave that column out of the permutation
+# argument, which only a MockProver accepts.  The ``Proved*`` subclasses enable
+# equality there, so keygen can lay the copies out.
+
+
+@functools.lru_cache(maxsize=None)
+def sinsemilla_domains():
+    """(HashDomain("MerkleCRH"), the Merkle CRH's, CommitDomain("z.cash:test-commit"))."""
+    return (sinsemilla_prim.HashDomain("MerkleCRH"),
+            sinsemilla_prim.HashDomain(MERKLE_CRH_PERSONALIZATION),
+            sinsemilla_prim.CommitDomain("z.cash:test-commit"))
+
+
+def _sinsemilla_configure(meta, num_advice: int, range_col: int, pieces_col: int):
+    advices = [meta.advice_column() for _ in range(num_advice)]
+    constants = meta.fixed_column()
+    meta.enable_constant(constants)
+    fixed_y_q = meta.fixed_column()
+    table_idx = meta.lookup_table_column()
+    table_x = meta.lookup_table_column()
+    table_y = meta.lookup_table_column()
+    range_check = LookupRangeCheckConfig.configure(
+        meta, advices[range_col], table_idx, SINSEMILLA_K, PASTA_FP)
+    sin_config = SinsemillaChip.configure(meta, advices[:5], advices[pieces_col], fixed_y_q,
+                                          (table_idx, table_x, table_y), range_check)
+    return advices, sin_config
+
+
+class SinsemillaHashCircuit(Circuit):
+    """Witness a message and hash it; compare against the host primitives."""
+
+    def __init__(self, bits, expected):
+        self.bits = bits  # list[Value[bool]], length multiple of K
+        self.expected = expected  # host affine point or None
+
+    @classmethod
+    def of(cls, nbits: int, seed: int):
+        bits = i2lebsp(pow(seed, 5, 1 << nbits), nbits)
+        return cls([Value.known(b) for b in bits], sinsemilla_domains()[0].hash_to_point(bits))
+
+    def without_witnesses(self):
+        return SinsemillaHashCircuit([Value.unknown()] * len(self.bits), self.expected)
+
+    @classmethod
+    def configure(cls, meta):
+        return _sinsemilla_configure(meta, 7, 6, 5)[1]
+
+    def synthesize(self, config, layouter):
+        SinsemillaChip.load(config, layouter)
+        chip = SinsemillaChip(config)
+        domain = HashDomainGadget(chip, sinsemilla_domains()[0].Q)
+        pieces = message_from_bitstring(chip, layouter, self.bits)
+        (x, y), zs = domain.hash_to_point(layouter, pieces)
+        if not x.value.is_none() and self.expected is not None:
+            got = (x.value.value(), y.value.value())
+            assert got == self.expected, (got, self.expected)
+        assert len(zs) == len(pieces)
+
+
+def host_merkle_root(leaf: int, pos: int, path: list) -> int:
+    domain = sinsemilla_domains()[1]
+    node = leaf
+    for layer, sibling in enumerate(path):
+        left, right = (sibling, node) if (pos >> layer) & 1 else (node, sibling)
+        node = domain.hash(sinsemilla_prim.i2lebsp(layer, 10) + sinsemilla_prim.i2lebsp(left, 255)
+                           + sinsemilla_prim.i2lebsp(right, 255))
+    return node
+
+
+class MerkleCircuit(Circuit):
+    def __init__(self, leaf, leaf_pos, path, depth, expected_root):
+        self.leaf, self.leaf_pos, self.path = leaf, leaf_pos, path
+        self.depth, self.expected_root = depth, expected_root
+
+    @classmethod
+    def of(cls, depth: int):
+        """tests/test_sinsemilla.py's inputs: depth 4 fixed, depth 32 from random.Random(42)."""
+        if depth == 4:
+            leaf = 0x2F0F40C2F152A01C9CAF66298493D5D0944A041C2E65BA0117C24F76BF8E6483 % PASTA_FP.p
+            pos = 0b1011
+            path = [(7 * i + 3) * 10**70 % PASTA_FP.p for i in range(depth)]
+        else:
+            rng = random.Random(42)
+            leaf = rng.randrange(PASTA_FP.p)
+            pos = rng.randrange(1 << depth)
+            path = [rng.randrange(PASTA_FP.p) for _ in range(depth)]
+        return cls(Value.known(leaf), Value.known(pos), Value.known(path), depth,
+                   host_merkle_root(leaf, pos, path))
+
+    def without_witnesses(self):
+        return type(self)(Value.unknown(), Value.unknown(), Value.unknown(), self.depth, None)
+
+    @classmethod
+    def configure(cls, meta):
+        return MerkleChip.configure(meta, _sinsemilla_configure(meta, 7, 6, 5)[1])
+
+    def synthesize(self, config, layouter):
+        SinsemillaChip.load(config.sinsemilla_config, layouter)
+        chip = MerkleChip(config)
+        leaf = load_private(layouter, config.advices[0], self.leaf)
+        path_gadget = MerklePath([chip], sinsemilla_domains()[1].Q, self.leaf_pos, self.path,
+                                 self.depth)
+        root = path_gadget.calculate_root(layouter, leaf)
+        if not root.value.is_none() and self.expected_root is not None:
+            got = root.value.map(sinsemilla_ev).value()
+            assert got == self.expected_root, (got, self.expected_root)
+
+
+class ProvedMerkleCircuit(MerkleCircuit):
+    @classmethod
+    def configure(cls, meta):
+        config = super().configure(meta)
+        meta.enable_equality(config.sinsemilla_config.witness_pieces)
+        return config
+
+
+COMMIT_MESSAGE = 0b1011001110_0100110101  # tests/test_sinsemilla.py::test_commit_domain_circuit
+COMMIT_R = 0x2C45DEADBEEF1234567890
+
+
+class CommitCircuit(Circuit):
+    def __init__(self, bits, r, expected):
+        self.bits, self.r, self.expected = bits, r, expected
+
+    @classmethod
+    def of(cls, message: int = COMMIT_MESSAGE, r: int = COMMIT_R):
+        bits = i2lebsp(message, 2 * SINSEMILLA_K)
+        return cls([Value.known(b) for b in bits], Value.known(r),
+                   sinsemilla_domains()[2].commit(bits, r))
+
+    def without_witnesses(self):
+        return type(self)([Value.unknown()] * len(self.bits), Value.unknown(), self.expected)
+
+    @classmethod
+    def configure(cls, meta):
+        advices, sin_config = _sinsemilla_configure(meta, 12, 8, 9)
+        ecc_config = EccChip.configure(meta, advices[:9])
+        mf_config = MulFixedChip.configure(meta, ecc_config, advices[10], advices[11])
+        return sin_config, mf_config
+
+    def synthesize(self, config, layouter):
+        sin_config, mf_config = config
+        SinsemillaChip.load(sin_config, layouter)
+        sin_chip = SinsemillaChip(sin_config)
+        domain = sinsemilla_domains()[2]
+        gadget = CommitDomainGadget(sin_chip, MulFixedChip(mf_config), domain.M.Q, domain.R)
+        pieces = message_from_bitstring(sin_chip, layouter, self.bits)
+        point, zs = gadget.commit(layouter, pieces, self.r)
+        if not point.x.value.is_none() and self.expected is not None:
+            got = point.value().value()
+            assert got == self.expected, (got, self.expected)
+
+
+class ProvedCommitCircuit(CommitCircuit):
+    """tests/make_sinsemilla_pin.py's circuit."""
+
+    @classmethod
+    def configure(cls, meta):
+        config = super().configure(meta)
+        meta.enable_equality(config[0].witness_pieces)
+        return config
+
+
+# -- Soundness regressions ---------------------------------------------------------
+#
+# Copies of tests/test_soundness_regressions.py's circuits.
+
+SHORT_CHECK_K = 4  # a 4-bit lookup table
+SHORT_CHECK_BITS = 3  # the claimed bound: value < 8
+
+
+class ShortCheckCircuit(Circuit):
+    """witness_short_check(value, 3) over a 4-bit table (the honest gadget)."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def without_witnesses(self):
+        return type(self)(Value.unknown())
+
+    @classmethod
+    def configure(cls, meta):
+        running_sum = meta.advice_column()
+        table_idx = meta.lookup_table_column()
+        constants = meta.fixed_column()
+        meta.enable_constant(constants)
+        return LookupRangeCheckConfig.configure(meta, running_sum, table_idx, SHORT_CHECK_K,
+                                                PALLAS.scalar)
+
+    def synthesize(self, config, layouter):
+        config.load(layouter)
+        config.witness_short_check(layouter, self.value, SHORT_CHECK_BITS)
+
+
+class ForgedShortCheckCircuit(ShortCheckCircuit):
+    """A malicious witness: value 9 >= 2^3 with a forged multiplier, so the
+    bitshift gate and both lookups pass; the honest gadget's region shape."""
+
+    def synthesize(self, config, layouter):
+        config.load(layouter)
+        p = PALLAS.scalar.p
+        evil, shifted = 9, 15
+        forged_inv = shifted * pow(evil * (1 << SHORT_CHECK_K), -1, p) % p
+
+        def do(region):
+            el = region.assign_advice(config.running_sum, 0, lambda: Value.known(evil))
+            config.q_lookup.enable(region, 0)
+            region.assign_advice(config.running_sum, 1, lambda: Value.known(shifted))
+            config.q_lookup.enable(region, 1)
+            config.q_bitshift.enable(region, 1)
+            region.assign_advice(config.running_sum, 2, lambda: Value.known(forged_inv))
+            return el
+
+        layouter.namespace("short range check").assign_region(
+            f"Witness short check {SHORT_CHECK_BITS} bits", do)
+
+
+class ShortMulCircuit(Circuit):
+    """The short fixed-base mul of the Pallas generator."""
+
+    floor_planner = SimpleFloorPlanner
+
+    def __init__(self, mag_sign):
+        self.mag_sign = mag_sign
+
+    def without_witnesses(self):
+        return ShortMulCircuit(Value.unknown())
+
+    @classmethod
+    def configure(cls, meta):
+        advices = [meta.advice_column() for _ in range(11)]
+        constants = meta.fixed_column()
+        meta.enable_constant(constants)
+        ecc = EccChip.configure(meta, advices[:9])
+        return MulFixedChip.configure(meta, ecc, advices[9], advices[10])
+
+    def synthesize(self, config, layouter):
+        MulFixedChip(config).mul_short(layouter, self.mag_sign, (PALLAS.gx, PALLAS.gy))
