@@ -104,7 +104,8 @@ Phases, one line each, every failure raising (non-zero exit, no result line):
    (Table16) at k=17 on "abc" and on the reference bench's 31-block message
    (1,975 bytes from a seed) satisfied against ``hashlib``'s digest, K1
    launched in ``verify()``; one flipped digest half-word gives the per-row
-   path's Permutation failures; (b) the 31-block circuit proved at k=17 over
+   path's Permutation failures (that path, pure host Python over every row,
+   runs on the CPU in a worker process beside (a)-(d)); (b) the 31-block circuit proved at k=17 over
    KZG/GWC on the device SRS: a wrong instance and a flipped byte rejected,
    keygen / prove / verify walls warm, fenced, the median of 2 after one
    cold, then one prove's synced phases; (c) ECC on Pallas Fp: the add cases
@@ -116,13 +117,36 @@ Phases, one line each, every failure raising (non-zero exit, no result line):
    equality on ``witness_pieces``: the commit circuit at k=11, its verifying
    key's ``transcript_repr`` equal to the JAX package's pin
    ``tests/data/sinsemilla_commit_ipa_k11.vk``, and the Merkle path at depth
-   32 at k=12; walls as in (b), a flipped byte rejected.
+   32 at k=12; walls as in (b), a flipped byte rejected;
+17. multi-device proving (``halo2_tpu_torch/parallel/``) on meshes of 2, 4
+   and 8 shards over the visible cards in turn (distinct cards up to their
+   count, then repeats: on one card, ``cuda:0`` D times, a proxy that
+   measures the sharding's overhead, not scaling; a mesh device that is no
+   card raises); the distinct cards and, with two or more, their peer access
+   printed: (a) BN254 Fr ``sharded_ntt`` / ``sharded_intt`` at n = 2^16 and
+   2^18 exactly equal to ``ntt_sixstep`` / ``intt_sixstep`` (and the round
+   trip), ``sharded_msm`` and ``sharded_msm_many`` (m = 4) at n = 2^16 equal
+   to ``msm`` / ``msm_many`` in affine form, for D = 2, 4, 8, and the gather
+   path once (n = 2^5, D = 8): times sharded beside one device, each
+   kernel's launches per call (K2, the MSM entries and ``ec_horner`` must
+   run in a sharded MSM); (b) ``entry.dryrun_multichip(D)`` for D = 2, 4, 8
+   equal to the k=6 pin; (c) ``BenchPlonkCircuit`` at k=16 over KZG/GWC and
+   Blake2b on the device SRS with D = 4: ``keygen_vk`` with the mesh gives
+   the same ``transcript_repr``, ``create_proof`` with and without it the
+   same bytes from one ``FieldRng`` seed, the sharded proof verifies through
+   the real pairing and a flipped byte is rejected, the sharded keys proved
+   again without a mesh give the same bytes and leave none on the params or
+   the domain; keygen and prove walls warm, fenced on every card, the median
+   of 2 after one cold run, each side's peak device memory, and the bytes
+   one sharded prove exchanges between shards; (d) ``bench.full.bench_scaling(k=12)``'s
+   ``scaling_efficiency_{2,4,8}dev`` lines with their devices.
 
-Phases 6, 10, 11, 14, 15 and 16 each zero the kernels' launch counters (and
+Phases 6, 10, 11, 14, 15, 16 and 17 each zero the kernels' launch counters (and
 the calls of ``limb.finv`` and ``msm_many``) just before they start and read
 them just after; K1, ``mont_pow``, ``ec_horner`` and the three MSM entries
 must each have been launched (and K2 and ``ec_scalar_mul`` in phases 11, 15
-and 16, K2 in 10, through ``gntt`` and the IPA rounds); on each,
+and 16, K2 in 10, through ``gntt`` and the IPA rounds, K2 in 17, where it
+folds the shards' partial MSMs); on each,
 ``msm_digits``, ``ec_window_table`` and ``ec_horner`` launches must equal the
 ``msm_many`` calls and ``ec_window_fold`` launches lie between one and three
 times them, and on phase 6 ``mont_pow`` launches must equal the ``finv`` calls
@@ -139,7 +163,9 @@ operation or the integer chains, so ``library_ms`` is null throughout.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -1230,11 +1256,33 @@ def verify_stages(torch, prover) -> tuple:
     return secs, failures
 
 
-def phase_sha256_mock(torch, counted, dev, k: int = 17) -> dict:
+def per_row_wrong_digest(k: int = 17) -> tuple:
+    """(failure list, seconds) of MockProver's per-row host path for SHA-256
+    "abc" at k with one flipped digest half-word: phase 16(a)'s reference,
+    pure host Python over every row (40-80 s), run on the CPU in a worker
+    process beside the card's phases 16(a)-(d)."""
+    import torch
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from halo2_tpu_torch.dev import MockProver
+    from halo2_tpu_torch.fields.spec import BN254_FR
+    from torch_circuits import Sha256Circuit, failure_summary, sha256_instance
+
+    bad = sha256_instance(b"abc")
+    bad[0] ^= 1
+    prover = MockProver.run(BN254_FR, k, Sha256Circuit.of(b"abc"), [bad], device="cpu")
+    t0 = time.perf_counter()
+    failures = failure_summary(prover.verify(vectorized=False))
+    return failures, time.perf_counter() - t0
+
+
+def phase_sha256_mock(torch, counted, dev, k: int = 17) -> tuple:
     """SHA-256 (Table16) under MockProver at k=17 with its columns on the
     card: "abc" and the reference bench's 31-block message are satisfied
-    against hashlib's digest; one flipped digest half-word gives the per-row
-    path's failure list."""
+    against hashlib's digest; one flipped digest half-word gives Permutation
+    failures, held to the per-row path's list (``per_row_wrong_digest``) by
+    the caller.  (results, the card's failure list)."""
     from halo2_tpu_torch.dev import MockProver
     from halo2_tpu_torch.fields.spec import BN254_FR
     from halo2_tpu_torch.gadgets.sha256 import pad_message
@@ -1283,17 +1331,24 @@ def phase_sha256_mock(torch, counted, dev, k: int = 17) -> dict:
     card = failure_summary(prover.verify())
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    host = failure_summary(prover.verify(vectorized=False))
-    host_s = time.perf_counter() - t0
-    if card != host or {f[0] for f in card} != {"Permutation"}:
+    if {f[0] for f in card} != {"Permutation"}:
+        raise AssertionError(f"[16] SHA-256 wrong digest: the card's {card[:2]} are not "
+                             f"Permutation failures")
+    res["wrong_digest"] = {"verify_s": card_s, "failures": len(card)}
+    return res, card
+
+
+def check_wrong_digest(res: dict, card: list, per_row) -> None:
+    """Phase 16(a)'s wrong digest: the card's failure list against the per-row
+    host path's (``per_row``, the worker's future)."""
+    host, host_s = per_row.result()
+    if card != host:
         raise AssertionError(f"[16] SHA-256 wrong digest: the card's {card[:2]} != the per-row "
-                             f"path's {host[:2]}, or not Permutation failures")
-    res["wrong_digest"] = {"verify_s": card_s, "verify_per_row_s": host_s, "failures": len(card)}
+                             f"path's {host[:2]}")
+    res["wrong_digest"]["verify_per_row_s"] = host_s
     log(f"[16] (a) SHA-256 \"abc\" with one digest half-word flipped: the card's {len(card)} "
-        f"Permutation failures ({card_s:.3f} s) == the per-row host path's ({host_s:.2f} s), "
-        f"strings included")
-    return res
+        f"Permutation failures ({res['wrong_digest']['verify_s']:.3f} s) == the per-row host "
+        f"path's ({host_s:.2f} s in a worker process beside (a)-(d)), strings included")
 
 
 def phase_sha256_prove(torch, profiling, smi: str, dev, k: int = 17, reps: int = 2) -> dict:
@@ -1514,6 +1569,262 @@ def phase_sinsemilla(torch, counted, profiling, smi: str, dev) -> dict:
                                                "merkle_depth32", 12, tc.ProvedMerkleCircuit.of(32),
                                                b"merkle-rng")
     return res
+
+
+PARALLEL_D = (2, 4, 8)
+
+
+def card_meshes(torch, sizes=PARALLEL_D) -> dict:
+    """A mesh of each size over the visible cards in turn: distinct cards up
+    to their count, then repeats (on one card, cuda:0 d times).  A mesh device
+    that is not a card raises."""
+    from halo2_tpu_torch.parallel import default_mesh
+
+    count = torch.cuda.device_count()
+    meshes = {}
+    for d in sizes:
+        mesh = default_mesh(d, [torch.device("cuda", i % count) for i in range(d)])
+        if any(dev.type != "cuda" for dev in mesh.devices):
+            raise AssertionError(f"[17] mesh of {d}: {mesh.devices} holds a device that is no card")
+        meshes[d] = mesh
+        log(f"[17] mesh of {d}: " + (f"{d} distinct cards" if len(mesh.distinct) == d else
+                                     f"{len(mesh.distinct)} distinct card(s), repeated: "
+                                     + ", ".join(map(str, mesh.devices))))
+    return meshes
+
+
+def sync_all(torch) -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def mesh_ms(torch, fn, reps: int) -> float:
+    """Mean milliseconds of fn() on a mesh: one warm-up, then ``reps`` calls
+    between two synchronizes of every card (host clock)."""
+    fn()
+    sync_all(torch)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync_all(torch)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def per_call(counted, fn) -> tuple:
+    """(fn(), the launches of each counted kernel during it): the counters
+    keep counting for the phase."""
+    before = {name: f.launches for name, f in counted.items()}
+    out = fn()
+    return out, {name: f.launches - before[name] for name, f in counted.items()
+                 if f.launches != before[name]}
+
+
+def random_limbs(torch, spec, shape, rs, dev):
+    """Montgomery limbs of random elements below p (numpy, no host ints)."""
+    raw = rs.integers(0, 1 << 16, size=(16,) + tuple(shape), dtype=np.int64)
+    raw[15] %= spec.p >> 240
+    return torch.from_numpy(raw.astype(np.int32)).to(dev)
+
+
+def phase_parallel_kernels(torch, counted, meshes, params, rs, dev,
+                           ntt_ks=(16, 18), msm_k: int = 16, m: int = 4) -> dict:
+    """(a) the sharded NTT, iNTT and MSM against the one-device ones, exact:
+    BN254 Fr sharded_ntt / sharded_intt at 2^k for ``ntt_ks`` against
+    ntt_sixstep / intt_sixstep, sharded_msm and sharded_msm_many (m columns)
+    at 2^msm_k over ``params``' Lagrange SRS against msm / msm_many in
+    affine form, each for every mesh; the gather path once (n = 2^5, D = 8).
+    Times on the host clock between synchronizes, sharded beside one device;
+    each kernel's launches in one sharded call."""
+    from halo2_tpu_torch.curves.point import Point, to_affine_ints
+    from halo2_tpu_torch.curves.spec import BN254_G1
+    from halo2_tpu_torch.fields import limb
+    from halo2_tpu_torch.ops import msm as msm_ops
+    from halo2_tpu_torch.ops import ntt as ntt_ops
+    from halo2_tpu_torch.parallel import sharded_intt, sharded_msm, sharded_msm_many, sharded_ntt
+
+    curve = BN254_G1
+    fr = curve.scalar
+    res = {"ntt": [], "msm": []}
+    for k in (5,) + tuple(ntt_ks):
+        n = 1 << k
+        omega = pow(fr.root_of_unity, 1 << (fr.s - k), fr.p)
+        inv = pow(omega, -1, fr.p)
+        tw, tw_inv = (ntt_ops.power_table(fr, w, n // 2, dev) for w in (omega, inv))
+        wc, wc_inv = (ntt_ops.cross_twiddles(fr, w, k, dev) for w in (omega, inv))
+        n_inv = limb.from_int(fr, pow(n, -1, fr.p), dev)
+        a = random_limbs(torch, fr, (n,), rs, dev)
+        want = ntt_ops.ntt_sixstep(fr, a, tw, wc, k)
+        want_inv = ntt_ops.intt_sixstep(fr, a, tw_inv, wc_inv, k, n_inv)
+        one_ms = mesh_ms(torch, lambda: ntt_ops.ntt_sixstep(fr, a, tw, wc, k), 3)
+        one_inv_ms = mesh_ms(torch, lambda: ntt_ops.intt_sixstep(fr, a, tw_inv, wc_inv, k, n_inv), 3)
+        for d in ((8,) if k == 5 else PARALLEL_D):
+            mesh = meshes[d]
+            got, launches = per_call(counted, lambda: sharded_ntt(fr, a, k, omega, mesh))
+            exact(torch, f"[17] sharded_ntt n=2^{k} D={d}", got, want)
+            back, inv_launches = per_call(counted, lambda: sharded_intt(fr, a, k, omega, mesh))
+            exact(torch, f"[17] sharded_intt n=2^{k} D={d}", back, want_inv)
+            exact(torch, f"[17] sharded_intt(sharded_ntt) n=2^{k} D={d}",
+                  sharded_intt(fr, got, k, omega, mesh), a)
+            r = {"n": n, "D": d, "path": "gather" if n < d * d else "four-step",
+                 "ms": mesh_ms(torch, lambda: sharded_ntt(fr, a, k, omega, mesh), 2),
+                 "one_device_ms": one_ms, "launches": launches,
+                 "intt_ms": mesh_ms(torch, lambda: sharded_intt(fr, a, k, omega, mesh), 2),
+                 "intt_one_device_ms": one_inv_ms, "intt_launches": inv_launches}
+            res["ntt"].append(r)
+            log(f"[17] (a) sharded_ntt / sharded_intt n=2^{k} D={d} ({r['path']}): exact against "
+                f"ntt_sixstep / intt_sixstep, round trip exact; {r['ms']:.2f} / {r['intt_ms']:.2f} "
+                f"ms against one device {one_ms:.2f} / {one_inv_ms:.2f} ms; launches per call "
+                f"{launches}")
+    n = 1 << msm_k
+    pts = Point(*(c[:, :n] for c in params.g_lagrange))
+    scal = random_limbs(torch, fr, (m, n), rs, dev).transpose(0, 1).contiguous()  # (m, 16, n)
+    want = to_affine_ints(curve, msm_ops.msm_many(curve, scal, pts))
+    want1 = to_affine_ints(curve, msm_ops.msm(curve, scal[0], pts))
+    one_ms = mesh_ms(torch, lambda: msm_ops.msm_many(curve, scal, pts), 3)
+    one1_ms = mesh_ms(torch, lambda: msm_ops.msm(curve, scal[0], pts), 3)
+    for d in PARALLEL_D:
+        mesh = meshes[d]
+        got, launches = per_call(counted, lambda: sharded_msm_many(curve, scal, pts, mesh))
+        got1, launches1 = per_call(counted, lambda: sharded_msm(curve, scal[0], pts, mesh))
+        if to_affine_ints(curve, got) != want or to_affine_ints(curve, got1) != want1:
+            raise AssertionError(f"[17] sharded_msm(_many) n=2^{msm_k} D={d}: differs from one device")
+        for name in ("ec_add",) + MSM_KERNELS + ("ec_horner",):
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"[17] sharded_msm_many D={d}: {name} was not launched")
+        r = {"n": n, "m": m, "D": d,
+             "ms": mesh_ms(torch, lambda: sharded_msm_many(curve, scal, pts, mesh), 3),
+             "one_device_ms": one_ms, "launches": launches,
+             "m1_ms": mesh_ms(torch, lambda: sharded_msm(curve, scal[0], pts, mesh), 3),
+             "m1_one_device_ms": one1_ms, "m1_launches": launches1}
+        res["msm"].append(r)
+        log(f"[17] (a) sharded_msm_many (m={m}) / sharded_msm n=2^{msm_k} D={d}: equal to msm_many / "
+            f"msm in affine form; {r['ms']:.2f} / {r['m1_ms']:.2f} ms against one device "
+            f"{one_ms:.2f} / {one1_ms:.2f} ms; launches per call {launches} / {launches1}")
+    return res
+
+
+def phase_parallel_dryrun(meshes) -> dict:
+    """(b) entry.dryrun_multichip on every mesh: the k=6 proof equal to the pin."""
+    from halo2_tpu_torch import entry
+
+    walls = {}
+    for d, mesh in meshes.items():
+        t0 = time.perf_counter()
+        entry.dryrun_multichip(d, devices=list(mesh.devices), log=lambda msg: log("[17] (b) " + msg))
+        walls[d] = time.perf_counter() - t0
+    return walls
+
+
+def phase_parallel_prove(torch, mesh, params, reps: int = 2) -> dict:
+    """(c) BenchPlonkCircuit at ``params.k`` over KZG/GWC and Blake2b, sharded over
+    ``mesh`` and on one device: equal transcript_repr and proof bytes, the
+    sharded proof verified through the real pairing and a flipped byte
+    rejected, the sharded keys proved once more without a mesh give the same
+    bytes and leave no mesh on the params or the domain; keygen and prove walls
+    warm, fenced on every card, the median of ``reps`` after one cold run,
+    and each side's peak device memory (also above what was held before it:
+    the SRS, and the sharded side's keys); the bytes one sharded prove moves
+    between shards."""
+    from halo2_tpu_torch.circuit import Value
+    from halo2_tpu_torch.curves.spec import BN254_G1
+    from halo2_tpu_torch.parallel import mesh as mesh_mod
+    from halo2_tpu_torch.plonk import create_proof, keygen_pk, keygen_vk, verify_proof
+    from halo2_tpu_torch.poly.multiopen_gwc import gwc_create_proof, gwc_verify_proof
+    from halo2_tpu_torch.transcript import Blake2bTranscript
+    from halo2_tpu_torch.utils.rng import FieldRng
+    from torch_circuits import BenchPlonkCircuit
+
+    spec, k = BN254_G1.scalar, params.k
+    circuit = BenchPlonkCircuit(k, Value.known(0x2B3C4D5E6F | k))
+    res = {"k": k, "D": mesh.size, "devices": [str(x) for x in mesh.devices]}
+
+    def fenced(fn):
+        sync_all(torch)
+        t0 = time.perf_counter()
+        out = fn()
+        sync_all(torch)
+        return out, time.perf_counter() - t0
+
+    out = {}
+    for side, m in (("sharded", mesh), ("one_device", None)):
+        sync_all(torch)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # the SRS, and the other side's keys
+
+        def keygen():
+            vk = keygen_vk(params, circuit.without_witnesses(), mesh=m)
+            return vk, keygen_pk(params, vk, circuit.without_witnesses(), mesh=m)
+
+        def prove():
+            return create_proof(params, pk, [circuit], [[]], FieldRng(spec, b"bench-prove-rng"),
+                                Blake2bTranscript(BN254_G1), gwc_create_proof, mesh=m)
+
+        kw, pw = [], []
+        for _ in range(reps + 1):
+            (vk, pk), wall = fenced(keygen)
+            kw.append(wall)
+        for i in range(reps + 1):
+            if m is not None and i == reps:
+                mesh_mod.traffic.update(bytes=0, copies=0)
+            proof, wall = fenced(prove)
+            pw.append(wall)
+        if m is not None:
+            res["prove_exchanged"] = dict(mesh_mod.traffic)
+        out[side] = (vk, pk, proof)
+        res[side] = {"keygen_s": statistics.median(kw[1:]), "keygen_cold_s": kw[0],
+                     "keygen_samples_s": kw[1:], "prove_s": statistics.median(pw[1:]),
+                     "prove_cold_s": pw[0], "prove_samples_s": pw[1:],
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "peak_above_held_gib": (torch.cuda.max_memory_allocated() - held) / 2**30}
+    (vk_s, pk_s, proof_s), (vk_1, _, proof_1) = out["sharded"], out["one_device"]
+    if vk_s.transcript_repr != vk_1.transcript_repr:
+        raise AssertionError(f"[17] (c) k={k} sharded keygen: another transcript_repr")
+    if proof_s != proof_1:
+        raise AssertionError(f"[17] (c) k={k} the sharded proof differs from the one-device proof")
+    # the sharded keys, proved once more without a mesh: none may stick
+    again = create_proof(params, pk_s, [circuit], [[]], FieldRng(spec, b"bench-prove-rng"),
+                         Blake2bTranscript(BN254_G1), gwc_create_proof)
+    if params.mesh is not None or pk_s.vk.domain.mesh is not None or again != proof_s:
+        raise AssertionError("[17] (c) a mesh stuck to the params or the domain after a prove "
+                             "without one")
+
+    def verify(pr):
+        return verify_proof(params, vk_s, [[]], Blake2bTranscript(BN254_G1, pr), gwc_verify_proof)
+
+    if verify(proof_s) is not True:
+        raise AssertionError(f"[17] (c) k={k} the sharded proof was rejected")
+    if not rejects_flipped(verify, proof_s, len(proof_s) // 2):
+        raise AssertionError(f"[17] (c) k={k} the sharded proof with a flipped byte was accepted")
+    res["proof_bytes"] = len(proof_s)
+    log(f"[17] (c) BenchPlonkCircuit k={k} KZG/GWC sharded over {mesh.size} shards "
+        f"({len(mesh.distinct)} distinct card(s)): transcript_repr and proof bytes "
+        f"({len(proof_s)} B) equal to one device; verified through the real pairing, flipped byte "
+        f"rejected; the sharded keys proved without a mesh: the same bytes, no mesh left")
+    for side in ("sharded", "one_device"):
+        r = res[side]
+        log(f"[17] (c) {side}: keygen {r['keygen_s']:.3f} s (cold {r['keygen_cold_s']:.3f}), "
+            f"prove {r['prove_s']:.3f} s (cold {r['prove_cold_s']:.3f}), warm median of {reps}; "
+            f"peak device memory {r['peak_gib']:.3f} GiB, {r['peak_above_held_gib']:.3f} GiB above "
+            f"what was held before it")
+    log(f"[17] (c) one warm sharded prove exchanged {res['prove_exchanged']['bytes']} bytes "
+        f"between shards in {res['prove_exchanged']['copies']} copies")
+    return res
+
+
+def phase_parallel_scaling(meshes) -> list:
+    """(d) bench.full.bench_scaling at k=12 on meshes of the visible cards in turn."""
+    from halo2_tpu_torch.bench import full
+
+    lines = full.bench_scaling(k=12, reps=3, devices=list(meshes[8].devices))
+    names = [line["metric"] for line in lines]
+    if names != [f"scaling_efficiency_{d}dev" for d in PARALLEL_D] or not all(
+            line["value"] > 0 and "distinct_devices" in line for line in lines):
+        raise AssertionError(f"[17] (d) bench_scaling lines {names}")
+    log(f"[17] (d) bench_scaling k=12: T_1 {lines[0]['t1_s'] * 1e3:.2f} ms, "
+        + ", ".join(f"T_{line['devices'].__len__()} {line['td_s'] * 1e3:.2f} ms"
+                    for line in lines)
+        + f"; {lines[0]['distinct_devices']}-{lines[-1]['distinct_devices']} distinct device(s)")
+    return lines
 
 
 def main() -> None:
@@ -1768,12 +2079,18 @@ def main() -> None:
     # ---- 16: the gadgets: SHA-256 (Table16), ECC, Sinsemilla ----------------------
     t0 = time.perf_counter()
     start_counting(torch, counted, calls.values())
-    sha256_mock = phase_sha256_mock(torch, counted, dev)
-    t1 = time.perf_counter()
-    sha256_proof = phase_sha256_prove(torch, profiling, smi, dev)
-    sha256_proof["phase_s"] = time.perf_counter() - t1
-    ecc = phase_ecc_mock(torch, counted, dev)
-    sinsemilla = phase_sinsemilla(torch, counted, profiling, smi, dev)
+    # the per-row host check of (a) runs on the CPU in a worker process, beside
+    # the card's (a)-(d); the pool is shut down when the block ends
+    spawn = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        per_row = pool.submit(per_row_wrong_digest)
+        sha256_mock, wrong_digest = phase_sha256_mock(torch, counted, dev)
+        t1 = time.perf_counter()
+        sha256_proof = phase_sha256_prove(torch, profiling, smi, dev)
+        sha256_proof["phase_s"] = time.perf_counter() - t1
+        ecc = phase_ecc_mock(torch, counted, dev)
+        sinsemilla = phase_sinsemilla(torch, counted, profiling, smi, dev)
+        check_wrong_digest(sha256_mock, wrong_digest, per_row)
     launches16 = read_counts(torch, counted, "[16]", calls,
                              PATH_KERNELS + ("ec_add", "ec_scalar_mul"))
     check_msm_launches("[16]", launches16, calls)
@@ -1782,14 +2099,46 @@ def main() -> None:
     log(json.dumps({"sha256_mock_k17": sha256_mock, "sha256_gwc_k17": sha256_proof, "ecc": ecc,
                     "sinsemilla_ipa": sinsemilla}))
 
+    # ---- 17: multi-device proving on meshes of the visible cards ----------------
+    t0 = time.perf_counter()
+    count = torch.cuda.device_count()
+    log(f"[17] {count} distinct CUDA device(s)")
+    if count >= 2:
+        log("[17] peer access: " + ", ".join(
+            f"{i}->{j} {torch.cuda.can_device_access_peer(i, j)}"
+            for i in range(count) for j in range(count) if i != j))
+    meshes = card_meshes(torch)
+    params16 = ParamsKZG.setup(16, seed=b"bench-prove", device=dev)
+    params16.s = None  # verify runs the real pairing
+    start_counting(torch, counted, calls.values())
+    t1 = time.perf_counter()
+    sharded = phase_parallel_kernels(torch, counted, meshes, params16, rs, dev)
+    sharded["phase_s"] = {"a": time.perf_counter() - t1}
+    t1 = time.perf_counter()
+    sharded["dryrun_walls_s"] = phase_parallel_dryrun(meshes)
+    sharded["phase_s"]["b"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    sharded["bench_plonk_k16"] = phase_parallel_prove(torch, meshes[4], params16)
+    sharded["phase_s"]["c"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    sharded["scaling"] = phase_parallel_scaling(meshes)
+    sharded["phase_s"]["d"] = time.perf_counter() - t1
+    launches17 = read_counts(torch, counted, "[17]", calls, PATH_KERNELS + ("ec_add",))
+    check_msm_launches("[17]", launches17, calls)
+    del params16
+    log(f"[17] multi-device proving: {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in sharded["phase_s"].items()) + ")")
+    log(json.dumps({"parallel": sharded}))
+
     def main_path(name):
-        """A prove-path kernel's launches in phases 6, 10, 11, 14, 15 and 16."""
+        """A prove-path kernel's launches in phases 6, 10, 11, 14, 15, 16 and 17."""
         by_phase = {"6": launches[name], "10": launches10[name], "11": launches11[name],
-                    "14": launches14[name], "15": launches15[name], "16": launches16[name]}
+                    "14": launches14[name], "15": launches15[name], "16": launches16[name],
+                    "17": launches17[name]}
         return {"launches": sum(by_phase.values()), "launches_by_phase": by_phase}
 
     def roofline_path(name):
-        """A roofline kernel's launches (phase 8); phases 6, 10, 11, 14, 15 and 16 run none."""
+        """A roofline kernel's launches (phase 8); phases 6, 10, 11, 14, 15, 16 and 17 run none."""
         return {"launches": roof_launches[name],
                 "launches_by_phase": {**main_path(name)["launches_by_phase"],
                                       "8": roof_launches[name]}}

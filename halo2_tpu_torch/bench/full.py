@@ -2,10 +2,10 @@
 BenchPlonk keygen, prove and verify walls over KZG/GWC.
 
     python -m halo2_tpu_torch.bench.full [k_prove ...] [--prove-only]
-        [--out PATH] [--trace] [--reps N] [--rate-k K]
+        [--no-scaling] [--out PATH] [--trace] [--reps N] [--rate-k K]
 
-Port of the one-device legs of ``bench_full.py`` (``bench_msm``,
-``bench_ntt``, ``bench_coset_ext``, ``bench_prove``, ``main``), with its
+Port of ``bench_full.py`` (``bench_msm``, ``bench_ntt``,
+``bench_coset_ext``, ``bench_prove``, ``bench_scaling``, ``main``), with its
 metric names.  It runs on the card and raises without one.  One JSON line per
 metric is printed, and all of them go to ``--out`` (default
 ``bench_out/BENCH_torch.json``) with ``backend`` and ``device`` (the card's
@@ -31,6 +31,12 @@ the trace ``trace/prove_k{K}/``.
     ``ParamsKZG.setup``, whose toxic waste is dropped by a RawBytes write and
     read, so verify runs the real pairing) and the proving key, in each
     ``SerdeFormat``, one run each;
+  * ``scaling_efficiency_{2,4,8}dev`` (``bench_scaling``; not with
+    ``--prove-only`` or ``--no-scaling``): the sharded NTT and MSM
+    (``parallel/``) at 2^12 over meshes of 1, 2, 4 and 8 devices, the
+    visible cards in turn; fewer than 8 cards make a repeated-card proxy,
+    labelled so in the line, which measures the sharding's overhead, not
+    scaling;
   * with ``--trace``, ``prove_device_busy_share_k{K}``: one more warm prove
     under ``utils.profiling.device_trace``, written to ``trace/prove_k{K}``
     beside ``--out``; the device time of its kernels, copies and fills over
@@ -288,6 +294,69 @@ def bench_prove(k: int, reps: int, out_dir: str, device, trace: bool = False) ->
     return out
 
 
+def sync_mesh(mesh) -> None:
+    for dev in mesh.distinct:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def bench_scaling(k: int = 12, reps: int = 3, devices=None) -> list:
+    """``scaling_efficiency_{2,4,8}dev``: the sharded NTT then the sharded MSM
+    of its output over a fixed 2^k, timed over meshes of D = 1, 2, 4 and 8
+    devices, efficiency_D = T_1 / (D * T_D).  The mesh of D is
+    ``devices[:D]`` (8 distinct CUDA cards by default); each line carries its
+    devices and how many are distinct, and a mesh that repeats a device is
+    labelled a proxy: it measures the sharding's overhead, not scaling.  Each
+    T_D is the mean of ``reps`` runs after one warm-up, fenced by a
+    synchronize of every card of the mesh."""
+    from ..parallel import default_mesh
+    from ..parallel.msm import sharded_msm
+    from ..parallel.ntt import sharded_ntt
+
+    curve, fr, n = BN254_G1, BN254_FR, 1 << k
+    omega = pow(fr.root_of_unity, 1 << (fr.s - k), fr.p)
+    meshes = {d: default_mesh(d, None if devices is None else list(devices)[:d])
+              for d in (1, 2, 4, 8)}
+    times = {}
+    for d, mesh in meshes.items():
+        dev = mesh.devices[0]
+        vals = limb.from_ints(fr, [(i * 7 + 3) % fr.p for i in range(n)], dev)
+        gen = generator(curve, dev)
+        pts = Point(*(c.reshape(NLIMBS, 1).expand(NLIMBS, n).contiguous() for c in gen))
+        on_device(dev, vals, *pts)
+
+        def step():
+            return sharded_msm(curve, sharded_ntt(fr, vals, k, omega, mesh), pts, mesh)
+
+        step()
+        sync_mesh(mesh)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        sync_mesh(mesh)
+        times[d] = (time.perf_counter() - t0) / reps
+    out = []
+    for d in (2, 4, 8):
+        mesh = meshes[d]
+        distinct = len(mesh.distinct)
+        unit = "fraction (fixed size" + (")" if distinct == d else
+                                         f", {d} shards on {distinct} device(s): proxy)")
+        eff = times[1] / (d * times[d])
+        out.append(emit(f"scaling_efficiency_{d}dev", eff, unit, eff / 0.70, k=k,
+                        t1_s=times[1], td_s=times[d], distinct_devices=distinct,
+                        devices=[str(x) for x in mesh.devices]))
+    return out
+
+
+def scaling_devices(device) -> list:
+    """Eight mesh devices for ``bench_scaling``: ``device`` eight times on the
+    CPU, else the visible cards in turn (distinct up to their count)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [device] * 8
+    return [torch.device("cuda", i % torch.cuda.device_count()) for i in range(8)]
+
+
 def card_name() -> str:
     import subprocess
 
@@ -300,7 +369,9 @@ def card_name() -> str:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("k_prove", nargs="*", type=int, help="prove legs' k (default: 14 16)")
-    ap.add_argument("--prove-only", action="store_true", help="skip the MSM / NTT / coset rates")
+    ap.add_argument("--prove-only", action="store_true",
+                    help="skip the MSM / NTT / coset rates and the scaling leg")
+    ap.add_argument("--no-scaling", action="store_true", help="skip the scaling leg")
     ap.add_argument("--out", default=DEFAULT_OUT, help=f"results file (default {DEFAULT_OUT})")
     ap.add_argument("--trace", action="store_true",
                     help="trace one more warm prove per k into trace/ beside --out")
@@ -325,6 +396,8 @@ def main(argv=None) -> dict:
         results.append(bench_coset_ext(args.rate_k, 2 * args.reps, device))
     for k in args.k_prove or [14, 16]:
         results.extend(bench_prove(k, args.reps, out_dir, device, args.trace))
+    if not (args.prove_only or args.no_scaling):
+        results.extend(bench_scaling(devices=scaling_devices(device)))
     payload = {
         "results": results,
         "backend": device.type,

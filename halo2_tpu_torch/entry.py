@@ -12,8 +12,13 @@ Port of the JAX package's ``__graft_entry__.py``, one device:
 - ``dryrun_full_proof()`` proves ``EntryCircuit`` at k=6 (keygen_vk,
   keygen_pk, create_proof over KZG/GWC and Blake2b) and raises unless the
   bytes equal the JAX package's pin ``tests/data/dryrun_proof_k6.hex``.  A
-  missing pin fails: this module never writes one.  The multi-device dry run
-  waits for the port of ``parallel/``.
+  missing pin fails: this module never writes one.
+- ``dryrun_multichip(n_devices, devices=None)`` proves ``EntryCircuit`` with
+  keygen and ``create_proof`` sharded over an ``n_devices`` mesh
+  (``parallel/``) and raises unless the bytes equal the one-device proof's:
+  the pin at k=6, a one-device proof made in the same call above.  Without
+  ``devices`` the mesh is that many distinct cards; ``["cuda:0"] * 4`` or
+  ``["cpu"] * 8`` build a repeated-device mesh.
 
     python -m halo2_tpu_torch.entry
 """
@@ -141,6 +146,47 @@ def dryrun_full_proof(device="cuda", log=print) -> bytes:
         raise AssertionError(f"k={k} proof bytes differ from {os.path.relpath(PIN)}")
     log(f"[dryrun] k={k} proof == pinned bytes ({len(proof)} B), "
         f"{time.perf_counter() - t0:.2f} s on {device}")
+    return proof
+
+
+def dryrun_multichip(n_devices: int, devices=None, log=print) -> bytes:
+    """The ``EntryCircuit`` proof sharded over an ``n_devices`` mesh
+    (``__graft_entry__.dryrun_multichip``): k = max(2 * bit_length(D - 1), 6),
+    so the base domain takes the four-step path (n >= D^2); raises unless the
+    bytes equal the pin (k = 6) or a one-device proof.  Returns the proof."""
+    from .curves.spec import BN254_G1
+    from .parallel import default_mesh
+    from .plonk import create_proof, keygen_pk, keygen_vk
+    from .poly.kzg import ParamsKZG
+    from .poly.multiopen_gwc import gwc_create_proof
+    from .transcript import Blake2bTranscript
+    from .utils.rng import FieldRng
+
+    t0 = time.perf_counter()
+    mesh = default_mesh(n_devices, devices)
+    k, a = max(2 * (n_devices - 1).bit_length(), 6), 5
+    spec = BN254_G1.scalar
+    circuit = EntryCircuit(1, Value.known(a))
+    params = ParamsKZG.setup_host(k, seed=b"dryrun", device=mesh.devices[0])
+
+    def prove(m):
+        vk = keygen_vk(params, circuit.without_witnesses(), mesh=m)
+        pk = keygen_pk(params, vk, circuit.without_witnesses(), mesh=m)
+        return create_proof(params, pk, [circuit], [[[pow(a, 4, spec.p)]]],
+                            FieldRng(spec, b"dryrun-proof"), Blake2bTranscript(BN254_G1),
+                            gwc_create_proof, mesh=m)
+
+    proof = prove(mesh)
+    if k == 6:
+        with open(PIN) as f:
+            expected, against = bytes.fromhex(f.read().strip()), os.path.relpath(PIN)
+    else:
+        expected, against = prove(None), "the one-device proof"
+    if proof != expected:
+        raise AssertionError(f"k={k} proof sharded over {n_devices} devices differs from {against}")
+    log(f"[dryrun_multichip] k={k} proof sharded over {n_devices} devices "
+        f"({len(mesh.distinct)} distinct: {', '.join(map(str, mesh.distinct))}) == {against} "
+        f"({len(proof)} B), {time.perf_counter() - t0:.2f} s")
     return proof
 
 

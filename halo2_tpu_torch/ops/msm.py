@@ -40,7 +40,7 @@ import torch
 from .. import _cuda
 from ..curves import ec_kernels
 from ..curves.ec_kernels import ec_add_plain, ec_double_plain
-from ..curves.point import Point
+from ..curves.point import Point, ec_add
 from ..curves.spec import CurveSpec
 from ..fields import limb
 from ..fields.mont_mul import mont_mul_plain
@@ -231,18 +231,27 @@ ec_window_table.launches = 0
 # 3. window fold
 # ---------------------------------------------------------------------------
 
-def _fold_points(curve: CurveSpec, pts: Point) -> Point:
-    """Tree-sum a (16, ..., n) point batch over its last axis (n a power of
-    two): level by level, element i plus element i + n/2, on the plain
-    EC formulas."""
-    while pts.x.shape[-1] > 1:
-        half = pts.x.shape[-1] // 2
-        pts = Point(*ec_add_plain(
-            curve,
-            tuple(c[..., :half].contiguous() for c in pts),
-            tuple(c[..., half:].contiguous() for c in pts),
-        ))
+def _reduce_points(curve: CurveSpec, pts: Point, add=ec_add) -> Point:
+    """Sum a (16, ..., n) point batch over its last axis: identity padding to
+    a power of two, then a tree fold, level by level, element i plus element
+    i + half, through ``add`` (K2 on a CUDA tensor).  ``parallel/msm.py``
+    folds the per-device partials with it."""
+    n = pts.x.shape[-1]
+    m = padded(n)
+    if m != n:
+        pad = _identity_columns(curve, pts.x, m - n)
+        pts = Point(*(torch.cat([c, i], dim=-1) for c, i in zip(pts, pad)))
+    while m > 1:
+        m //= 2
+        pts = Point(*add(curve, Point(*(c[..., :m] for c in pts)),
+                         Point(*(c[..., m:] for c in pts))))
     return Point(*(c[..., 0] for c in pts))
+
+
+def _fold_points(curve: CurveSpec, pts: Point) -> Point:
+    """``_reduce_points`` on the plain EC formulas, for a power-of-two n: the
+    order of ``ec_window_fold``."""
+    return _reduce_points(curve, pts, add=ec_add_plain)
 
 
 def _select_window_points(curve: CurveSpec, table, digits) -> Point:

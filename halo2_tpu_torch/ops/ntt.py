@@ -1,10 +1,10 @@
 """NTTs over multi-limb field tensors: six-step and radix-2 butterfly.
 
 Port of the JAX package's ``ops/ntt.py``: the six-step path, which the
-domain's transforms take, and the butterfly ``ntt`` / ``intt``, which the
-bench times as the JAX bench does (``ntt_batched`` feeds only the multi-device
-code and is not ported).  The six-step transform
-computes the standard DFT out[i] = sum_j a[j] * omega^(i*j) of a (16, 2^k)
+domain's transforms take, the butterfly ``ntt`` / ``intt``, which the bench
+times as the JAX bench does, and its batched form ``ntt_batched``, which the
+four-step multi-device transform (``parallel/ntt.py``) runs on each shard.
+The six-step transform computes the standard DFT out[i] = sum_j a[j] * omega^(i*j) of a (16, 2^k)
 Montgomery limb tensor, as the reference's ``best_fft`` does
 (arithmetic.rs:171-274).  With n = n1*n2:
 
@@ -51,28 +51,37 @@ def power_table(spec: FieldSpec, base: int, n: int, device=None) -> torch.Tensor
     return table[:, :n]
 
 
-def ntt(spec: FieldSpec, a, twiddles, k: int):
-    """DFT of a (16, 2^k) limb tensor by the radix-2 butterfly network.
+def ntt_batched(spec: FieldSpec, a, twiddles, k: int):
+    """DFT along the last axis of a (16, ..., 2^k) limb tensor by the radix-2
+    butterfly network.
 
-    The JAX package's ``ntt``: bit-reverse the input, then k decimation-in-
-    time stages.  Stage s pairs positions lo and lo + 2^(s-1) inside each
-    block of 2^s and multiplies the upper one by the twiddle
+    The JAX package's ``ntt_batched``: bit-reverse the last axis, then k
+    decimation-in-time stages.  Stage s pairs positions lo and lo + 2^(s-1)
+    inside each block of 2^s and multiplies the upper one by the twiddle
     ``twiddles[off << (k - s)]`` (K1); ``twiddles`` is the (16, 2^(k-1))
-    table of powers of the domain generator (:func:`power_table`).  A
-    block's pairs are a reshape here, where the JAX package gathers them.
+    table of powers of the generator (:func:`power_table`).  A block's pairs
+    are a reshape here, where the JAX package gathers them.
     """
     n = 1 << k
-    assert a.shape == (NLIMBS, n)
+    assert a.shape[0] == NLIMBS and a.shape[-1] == n
     if k == 0:
         return a
-    x = a[:, bitrev_indices(k, a.device)]
+    batch = a.shape[1:-1]
+    x = a[..., bitrev_indices(k, a.device)]
     for s in range(1, k + 1):
         h = 1 << (s - 1)
-        x = x.reshape(NLIMBS, n >> s, 2, h)
-        u, v = x[:, :, 0], x[:, :, 1]
-        t = limb.fmul(spec, v, twiddles[:, :: 1 << (k - s)][:, None, :h])
-        x = torch.stack([limb.fadd(spec, u, t), limb.fsub(spec, u, t)], dim=2)
-    return x.reshape(NLIMBS, n)
+        x = x.reshape((NLIMBS,) + batch + (n >> s, 2, h))
+        u, v = x[..., 0, :], x[..., 1, :]
+        tw = twiddles[:, :: 1 << (k - s)][:, :h]
+        t = limb.fmul(spec, v, tw.reshape((NLIMBS,) + (1,) * (len(batch) + 1) + (h,)))
+        x = torch.stack([limb.fadd(spec, u, t), limb.fsub(spec, u, t)], dim=-2)
+    return x.reshape(a.shape)
+
+
+def ntt(spec: FieldSpec, a, twiddles, k: int):
+    """DFT of a (16, 2^k) limb tensor: :func:`ntt_batched` without a batch."""
+    assert a.shape == (NLIMBS, 1 << k)
+    return ntt_batched(spec, a, twiddles, k)
 
 
 def intt(spec: FieldSpec, a, inv_twiddles, k: int, n_inv_mont):

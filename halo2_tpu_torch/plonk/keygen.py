@@ -391,10 +391,15 @@ def _run_keygen_synthesis(params, spec, circuit):
     return domain, cs, assembly, fixed, sigmas
 
 
-def keygen_vk(params, circuit, spec: FieldSpec | None = None) -> VerifyingKey:
+def keygen_vk(params, circuit, spec: FieldSpec | None = None, mesh=None) -> VerifyingKey:
+    """``mesh`` (a ``parallel.DeviceMesh``): the commitments run sharded over
+    it.  It is set on ``params`` and the domain unconditionally, None
+    included, so a mesh never sticks to a later call."""
     spec = spec or params.curve.scalar
+    params.mesh = mesh
     synthesis = _run_keygen_synthesis(params, spec, circuit)
     domain, cs, assembly, fixed, sigmas = synthesis
+    domain.mesh = mesh
     # every fixed and sigma column in ONE batched MSM, each with
     # Blind::default() = 1 (keygen.rs:247-250; KZG ignores it, IPA adds w)
     columns = fixed + sigmas
@@ -407,9 +412,15 @@ def keygen_vk(params, circuit, spec: FieldSpec | None = None) -> VerifyingKey:
     )
 
 
-def keygen_pk(params, vk: VerifyingKey, circuit, spec: FieldSpec | None = None) -> ProvingKey:
+def keygen_pk(params, vk: VerifyingKey, circuit, spec: FieldSpec | None = None,
+              mesh=None) -> ProvingKey:
+    """``mesh``: the transforms and commitments run sharded over it, set as
+    in :func:`keygen_vk`."""
     spec = spec or params.curve.scalar
+    params.mesh = mesh
+    vk.domain.mesh = mesh
     domain, cs, _, fixed, sigmas = vk.synthesis or _run_keygen_synthesis(params, spec, circuit)
+    domain.mesh = mesh
     n = 1 << params.k
     dev = params.device
 

@@ -359,7 +359,7 @@ def _lookup_committed(domain, permuted, z, product_blind) -> LookupCommitted:
 
 
 def create_proof(params, pk: ProvingKey, circuits, instances, rng, transcript, multiopen,
-                 query_instance: bool = False):
+                 query_instance: bool = False, mesh=None):
     """instances: list (per circuit) of list (per instance column) of int lists.
 
     ``multiopen`` is a callable (params, rng, transcript, queries) -> None
@@ -368,6 +368,13 @@ def create_proof(params, pk: ProvingKey, circuits, instances, rng, transcript, m
     hashes the instance values as common scalars; True (IPA) commits each
     instance column with Blind::default() = 1, hashes the commitment, writes
     the instance evaluations and opens the instance polynomials.
+
+    ``mesh`` (a ``parallel.DeviceMesh``): the commitments run as the sharded
+    MSM (``parallel/msm.py``) and the transforms as the four-step sharded NTT
+    (``parallel/ntt.py``); everything else stays on ``params.device``.  The
+    arithmetic is exact, so the proof bytes equal the one-device proof's.  It
+    is set on ``params`` and the domain unconditionally, None included, so a
+    mesh never sticks to a later call.
     """
     domain: EvaluationDomain = pk.vk.domain
     spec = domain.spec
@@ -375,6 +382,8 @@ def create_proof(params, pk: ProvingKey, circuits, instances, rng, transcript, m
     n = domain.n
     p = spec.p
     dev = params.device
+    params.mesh = mesh
+    domain.mesh = mesh
 
     pk.vk.hash_into(transcript)
 

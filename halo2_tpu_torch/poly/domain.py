@@ -4,7 +4,9 @@ Port of the JAX package's ``poly/domain.py`` (the reference EvaluationDomain,
 poly/domain.rs:39-362): host-side Python-int scalar precomputation (omegas,
 divisors, t-evaluations, barycentric weight) plus cached device twiddle and
 coset tables for the six-step NTT of ``ops/ntt.py``.  Every table lives on
-``self.device``.
+``self.device``.  With ``self.mesh`` set (keygen and ``create_proof`` set it
+from their ``mesh=``), a transform of length >= D^2 runs sharded over the
+mesh's D devices (``parallel/ntt.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from ..fields import limb
 from ..fields.spec import NLIMBS, FieldSpec, int_to_limbs
 from ..ops import ntt as ntt_ops
+from ..parallel import ntt as parallel_ntt
 from .polynomial import COEFF, EXTENDED, LAGRANGE, Poly, Rotation
 
 
@@ -73,6 +76,16 @@ class EvaluationDomain:
         self.ifft_divisor = pow(1 << k, -1, p)
         self.extended_ifft_divisor = pow(1 << extended_k, -1, p)
         self.barycentric_weight = pow(self.n, -1, p)
+        # optional parallel.DeviceMesh: the transforms run as the four-step
+        # sharded NTT (parallel/ntt.py), the analog of the reference's
+        # thread-split FFT (arithmetic.rs:202-274)
+        self.mesh = None
+
+    def _use_mesh(self, length: int) -> bool:
+        if self.mesh is None:
+            return False
+        ndev = self.mesh.shape["shard"]
+        return ndev > 1 and length >= ndev * ndev
 
     # ------------------------------------------------------------------
     # cached device tables
@@ -175,6 +188,9 @@ class EvaluationDomain:
 
     def lagrange_to_coeff(self, a: Poly) -> Poly:
         assert a.basis == LAGRANGE
+        if self._use_mesh(self.n):
+            return Poly(parallel_ntt.sharded_intt(self.spec, a.values, self.k, self.omega,
+                                                  self.mesh), COEFF)
         vals = ntt_ops.intt_sixstep(
             self.spec, a.values, self._tw_inv, self._wc_inv, self.k, self._ifft_div_mont
         )
@@ -182,22 +198,34 @@ class EvaluationDomain:
 
     def coeff_to_lagrange(self, a: Poly) -> Poly:
         assert a.basis == COEFF
+        if self._use_mesh(self.n):
+            return Poly(parallel_ntt.sharded_ntt(self.spec, a.values, self.k, self.omega,
+                                                 self.mesh), LAGRANGE)
         return Poly(ntt_ops.ntt_sixstep(self.spec, a.values, self._tw, self._wc, self.k), LAGRANGE)
 
     def coeff_to_extended(self, a: Poly) -> Poly:
         assert a.basis == COEFF
         vals = limb.fmul(self.spec, a.values, self._zeta_into)
         vals = torch.nn.functional.pad(vals, (0, self.extended_len - self.n))
-        vals = ntt_ops.ntt_sixstep(self.spec, vals, self._ext_tw, self._ext_wc, self.extended_k)
+        if self._use_mesh(self.extended_len):
+            vals = parallel_ntt.sharded_ntt(self.spec, vals, self.extended_k,
+                                            self.extended_omega, self.mesh)
+        else:
+            vals = ntt_ops.ntt_sixstep(self.spec, vals, self._ext_tw, self._ext_wc,
+                                       self.extended_k)
         return Poly(vals, EXTENDED)
 
     def extended_to_coeff(self, a: Poly):
         """Returns raw coefficient limbs of length n*quotient_poly_degree."""
         assert a.basis == EXTENDED
-        vals = ntt_ops.intt_sixstep(
-            self.spec, a.values, self._ext_tw_inv, self._ext_wc_inv,
-            self.extended_k, self._ext_ifft_div_mont,
-        )
+        if self._use_mesh(self.extended_len):
+            vals = parallel_ntt.sharded_intt(self.spec, a.values, self.extended_k,
+                                             self.extended_omega, self.mesh)
+        else:
+            vals = ntt_ops.intt_sixstep(
+                self.spec, a.values, self._ext_tw_inv, self._ext_wc_inv,
+                self.extended_k, self._ext_ifft_div_mont,
+            )
         vals = limb.fmul(self.spec, vals, self._zeta_outof_ext)
         return vals[:, : self.n * self.quotient_poly_degree]
 

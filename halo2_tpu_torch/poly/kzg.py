@@ -4,7 +4,8 @@ Port of the JAX package's ``poly/kzg.py`` (the reference ParamsKZG,
 poly/kzg/commitment.rs:23-129).  The SRS is generated on the device
 (``setup``) or host-side (``setup_host``), with the same values either way;
 commitments are the MSM of ``ops/msm.py`` over ``g`` or
-``g_lagrange`` (kzg/commitment.rs:281-292,327-334).  ``device`` is where the
+``g_lagrange`` (kzg/commitment.rs:281-292,327-334), split over ``mesh``'s
+devices when it is set (``parallel/msm.py``).  ``device`` is where the
 SRS lives, and with it every tensor the prover makes: the card unless the
 caller passes another (``device="cpu"`` runs the plain kernel versions).
 
@@ -31,8 +32,9 @@ from ..curves.spec import BN254_G1, CurveSpec
 from ..fields import limb
 from ..fields.spec import NLIMBS
 from ..ops import ntt as ntt_ops
-from ..ops.msm import msm, msm_many
+from ..ops.msm import msm_many
 from ..ops.scalar_mul import batch_scalar_mul
+from ..parallel.msm import sharded_msm_many
 from .polynomial import COEFF, LAGRANGE, Poly
 
 
@@ -49,6 +51,10 @@ class ParamsKZG:
         self.g2 = g2
         self.s_g2 = s_g2
         self.s = s  # dev-only toxic waste (None for externally loaded params)
+        # optional parallel.DeviceMesh: commitments split their points over
+        # it (parallel/msm.py), the analog of the reference's chunk-per-thread
+        # best_multiexp (arithmetic.rs:132-159)
+        self.mesh = None
 
     @property
     def device(self) -> torch.device:
@@ -163,23 +169,36 @@ class ParamsKZG:
         s_g2 = bn254_g2.g2_mul(g2, s)
         return cls(k, g, g_lagrange, g2, s_g2, s=s)
 
+    def _msm_many(self, scalars, points: Point) -> Point:
+        """msm_many of (m, 16, n) scalars, sharded over ``self.mesh`` where n
+        splits into slices of two or more points."""
+        ndev = self.mesh.shape["shard"] if self.mesh is not None else 0
+        n = scalars.shape[2]
+        if ndev > 1 and n % ndev == 0 and n // ndev >= 2:
+            return sharded_msm_many(self.curve, scalars, points, self.mesh)
+        return msm_many(self.curve, scalars, points)
+
+    def _msm(self, scalars, points: Point) -> Point:
+        r = self._msm_many(scalars.unsqueeze(0), points)
+        return Point(r.x[:, 0], r.y[:, 0], r.z[:, 0])
+
     # ------------------------------------------------------------------
     def commit_lagrange(self, poly: Poly, blind: int = 0) -> Point:
         """MSM over the Lagrange SRS.  KZG ignores the blinding factor
         (kzg/commitment.rs:281-292 takes Blind and drops it)."""
         assert poly.basis == LAGRANGE
-        return msm(self.curve, poly.values, self.g_lagrange)
+        return self._msm(poly.values, self.g_lagrange)
 
     def commit(self, poly: Poly, blind: int = 0) -> Point:
         assert poly.basis == COEFF
-        return msm(self.curve, poly.values, self.g)
+        return self._msm(poly.values, self.g)
 
     def commit_lagrange_many(self, polys, blinds) -> Point:
         """Commit m Lagrange polys in one batched MSM (blinds ignored, as in
         commit_lagrange).  Returns a batched Point (16, m)."""
         assert all(p.basis == LAGRANGE for p in polys) and len(blinds) == len(polys)
         stacked = torch.stack([p.values for p in polys], dim=0)  # (m, 16, n)
-        return msm_many(self.curve, stacked, self.g_lagrange)
+        return self._msm_many(stacked, self.g_lagrange)
 
     def commit_many(self, polys, blinds) -> Point:
         """Commit m coefficient-form polys in one batched MSM over ``g``
@@ -190,13 +209,13 @@ class ParamsKZG:
     def commit_coeffs(self, coeffs) -> Point:
         """Commit raw coefficient limbs of arbitrary length <= n."""
         m = coeffs.shape[1]
-        return msm(self.curve, coeffs, Point(*(c[:, :m] for c in self.g)))
+        return self._msm(coeffs, Point(*(c[:, :m] for c in self.g)))
 
     def commit_coeffs_many(self, coeffs_list) -> Point:
         """Commit several raw coefficient arrays of one length in one MSM."""
         m = coeffs_list[0].shape[1]
         stacked = torch.stack(list(coeffs_list), dim=0)
-        return msm_many(self.curve, stacked, Point(*(c[:, :m] for c in self.g)))
+        return self._msm_many(stacked, Point(*(c[:, :m] for c in self.g)))
 
     def empty_msm(self):
         from .multiopen_gwc import HostMSM

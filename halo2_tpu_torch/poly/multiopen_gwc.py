@@ -3,7 +3,8 @@
 Port of the JAX package's ``poly/multiopen_gwc.py`` (the reference
 poly/kzg/multiopen/gwc/{prover,verifier}.rs): queries grouped by point in
 first-occurrence order, batched with powers of v, witness polynomial via the
-parallel closed-form kate division, and all W commitments in one batched MSM;
+parallel closed-form kate division, and all W commitments in one batched MSM
+(split over ``params.mesh``'s devices when it is set, ``poly/kzg.py``);
 the verifier accumulates the two-channel pairing MSM on the host.
 """
 

@@ -123,7 +123,7 @@ def test_bench_full_cli_on_the_cpu(tmp_path):
     env.pop("HALO2_TPU_PROFILE", None)
     proc = subprocess.run(
         [sys.executable, "-m", "halo2_tpu_torch.bench.full", "4", "--device", "cpu",
-         "--reps", "1", "--rate-k", "3", "--out", str(out_dir / "bench.json")],
+         "--reps", "1", "--rate-k", "3", "--no-scaling", "--out", str(out_dir / "bench.json")],
         cwd=work, env=env, capture_output=True, text=True, timeout=900,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]

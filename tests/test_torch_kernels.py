@@ -10,7 +10,10 @@ on the Pasta fields at n = 2^16 and K2/K3 on Pallas and Vesta at n = 2^14;
 ``batch_scalar_mul`` and the device KZG setup, which run on the chains,
 against the host; the MSM entries ``msm_digits``, ``ec_window_table`` and
 ``ec_window_fold`` (``csrc/msm.cu``) against theirs, and ``msm_many`` on the
-card through them alone.
+card through them alone.  On a host with two or more cards, the sharded NTT,
+iNTT and MSM (``parallel/``) over meshes of distinct cards against one card,
+each shard's tables on its own card, and the k=6 proof over a mesh of
+distinct cards against its pin.
 This file imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda -q
@@ -484,3 +487,65 @@ def test_msm_entries_check_operands_and_raise_on_a_refused_launch(dev):
                                words, n0, b3, one, _cuda.stream_ptr(table))
     with pytest.raises(RuntimeError, match="cudaError"):
         _cuda.check(rc, "ec_window_fold")
+
+
+# ---------------------------------------------------------------------------
+# multi-device proving on distinct cards (parallel/)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices: a mesh of distinct cards")
+    return torch.cuda.device_count()
+
+
+def _card_mesh(cards: int, d: int):
+    from halo2_tpu_torch.parallel import default_mesh
+
+    mesh = default_mesh(d, [torch.device("cuda", i % cards) for i in range(d)])
+    assert len(mesh.distinct) == min(cards, d)
+    return mesh
+
+
+@pytest.mark.parametrize("k, d", [(12, 2), (12, 4), (12, 8), (5, 8)])
+def test_sharded_ntt_equals_one_device_on_distinct_cards(cards, k, d):
+    from halo2_tpu_torch.parallel import ntt as pntt
+
+    f, n = BN254_G1.scalar, 1 << k
+    dev = torch.device("cuda", 0)
+    omega = pow(f.root_of_unity, 1 << (f.s - k), f.p)
+    a = limb.from_ints(f, _values(f.p, 60 + k, n), dev)
+    want = ntt_ops.ntt_sixstep(f, a, ntt_ops.power_table(f, omega, n // 2, dev),
+                               ntt_ops.cross_twiddles(f, omega, k, dev), k)
+    mesh = _card_mesh(cards, d)
+    got = pntt.sharded_ntt(f, a, k, omega, mesh)
+    assert got.device == dev and torch.equal(got, want)
+    assert torch.equal(pntt.sharded_intt(f, got, k, omega, mesh), a)
+    if n >= d * d:  # each shard's tables on its own card
+        for i, card in enumerate(mesh.devices):
+            assert all(t.device == card for t in pntt._tables(f, omega, n, d, i, card))
+
+
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_sharded_msm_equals_one_device_on_distinct_cards(cards, d):
+    from halo2_tpu_torch.parallel import sharded_msm, sharded_msm_many
+
+    curve = BN254_G1
+    dev = torch.device("cuda", 0)
+    _, _, scal, pts = _msm_operands(curve, 1 << 10, 3, 61, dev)
+    mesh = _card_mesh(cards, d)
+    want = point.to_affine_ints(curve, msm_ops.msm_many(curve, scal, pts))
+    got = sharded_msm_many(curve, scal, pts, mesh)
+    assert got.x.device == dev and point.to_affine_ints(curve, got) == want
+    assert point.to_affine_ints(curve, sharded_msm(curve, scal[0], pts, mesh)) == want[:1]
+
+
+def test_sharded_proof_equals_the_pin_on_distinct_cards(cards):
+    from halo2_tpu_torch import entry
+
+    d = 1 << (min(cards, 8).bit_length() - 1)  # default_mesh(d): d distinct cards
+    with open(os.path.join(HERE, "data", "dryrun_proof_k6.hex")) as f:
+        expected = bytes.fromhex(f.read().strip())
+    assert entry.dryrun_multichip(d, log=lambda msg: None) == expected

@@ -110,7 +110,10 @@ def test_streamed_cosets_give_the_same_proof(entry):
 
 _SUBPROCESS = r"""
 import json, sys
+import halo2_tpu_torch.bench.full
 import halo2_tpu_torch.bench.roofline
+import halo2_tpu_torch.entry
+import halo2_tpu_torch.parallel
 from halo2_tpu_torch.circuit import Value
 from halo2_tpu_torch.curves.spec import BN254_G1
 from halo2_tpu_torch.plonk import create_proof, keygen_pk, keygen_vk, verify_proof
