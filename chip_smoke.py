@@ -139,7 +139,16 @@ Phases, one line each, every failure raising (non-zero exit, no result line):
    the domain; keygen and prove walls warm, fenced on every card, the median
    of 2 after one cold run, each side's peak device memory, and the bytes
    one sharded prove exchanges between shards; (d) ``bench.full.bench_scaling(k=12)``'s
-   ``scaling_efficiency_{2,4,8}dev`` lines with their devices.
+   ``scaling_efficiency_{2,4,8}dev`` lines with their devices;
+18. K1's field and transform entries: ``field_add``, ``field_sub`` and
+   ``field_neg`` (``csrc/field_ops.cu``) against their plain carry chains on
+   BN254 Fr at n = 2^15, 2^16 and 2^21 (0, 1 and p-1 included), with both
+   operands full and with one operand of one element read in place, and K1
+   with such an operand; ``stockham_axis`` (``csrc/ntt.cu``) against the
+   plain stage loop on (16, m, B) at m = 1, 2, 2^7, 2^8 and 2^11 (the
+   six-step's axis shapes at 2^15, 2^16 and 2^21); ``ntt_sixstep`` at 2^15
+   and 2^16 on it against the six-step on the plain loop.  Exact equality;
+   kernel and plain times and each bound.
 
 Phases 6, 10, 11, 14, 15, 16 and 17 each zero the kernels' launch counters (and
 the calls of ``limb.finv`` and ``msm_many``) just before they start and read
@@ -149,16 +158,19 @@ and 16, K2 in 10, through ``gntt`` and the IPA rounds, K2 in 17, where it
 folds the shards' partial MSMs); on each,
 ``msm_digits``, ``ec_window_table`` and ``ec_horner`` launches must equal the
 ``msm_many`` calls and ``ec_window_fold`` launches lie between one and three
-times them, and on phase 6 ``mont_pow`` launches must equal the ``finv`` calls
-and the standalone K2 / K3 launches be 0. Then one JSON line with every
+times them, and on phase 6 ``mont_pow`` launches must equal the ``finv`` calls,
+the standalone K2 / K3 launches be 0, ``field_add``, ``field_sub``,
+``field_neg`` and ``stockham_axis`` each be launched, and no plain version
+(the carry chains, the stage loop, K1's) be called on a CUDA tensor. Then one JSON line with every
 kernel's launches by phase, error, times and bound, and as the last line
 ``{"ok": true, "device": {...}}``. Times are CUDA-event times on this card,
 kernel and plain version measured in the same run. A bound is the larger of
 the bytes the function must move over 3.35 TB/s and its 32-bit multiply-adds
 (136 per Montgomery product: an 8-word CIOS product) over the card's 32-bit
 integer rate (SMs x 64 lanes x the maximum SM clock, ``bench/roofline.py``),
-for this run's inputs. No PyTorch call computes a Montgomery product, an EC
-operation or the integer chains, so ``library_ms`` is null throughout.
+for this run's inputs. No PyTorch call computes a Montgomery product, a
+field addition modulo p, an NTT over these fields, an EC operation or the
+integer chains, so ``library_ms`` is null throughout.
 """
 
 from __future__ import annotations
@@ -483,6 +495,8 @@ def rejects_flipped(verify, proof: bytes, at: int) -> bool:
 
 MSM_KERNELS = ("msm_digits", "ec_window_table", "ec_window_fold")
 PATH_KERNELS = ("mont_mul", "mont_pow", "ec_horner") + MSM_KERNELS
+# K1's field and transform entries
+ENTRY_KERNELS = ("field_add", "field_sub", "field_neg", "stockham_axis")
 
 
 def start_counting(torch, counted, calls=()) -> None:
@@ -1827,8 +1841,155 @@ def phase_parallel_scaling(meshes) -> list:
     return lines
 
 
+class PlainOnCard:
+    """Counts the calls, with a tensor on the card, of plain versions that
+    their wrappers call by name (``field_add_plain`` and the like): on the
+    main path every such call would be a kernel not taken."""
+
+    def __init__(self, targets):
+        self.calls = {}
+        for mod, name in targets:
+            orig = getattr(mod, name)
+
+            def counted(*args, _orig=orig, _name=name, **kwargs):
+                if any(getattr(a, "is_cuda", False) for a in args):
+                    self.calls[_name] += 1
+                return _orig(*args, **kwargs)
+
+            setattr(mod, name, counted)
+            self.calls[name] = 0
+
+    def reset(self) -> None:
+        for name in self.calls:
+            self.calls[name] = 0
+
+
+def special_limbs(torch, limb, spec, n: int, rs, dev):
+    """(16, n) Montgomery limbs of random elements with 0, 1 and p-1 in front."""
+    a = random_limbs(torch, spec, (n,), rs, dev)
+    a[:, :3] = limb.from_ints(spec, [0, 1, spec.p - 1], dev)
+    return a
+
+
+def phase_field_entries(torch, limb, field_ops, mm, spec, rs, dev, peaks,
+                        ns=(1 << 15, 1 << 16, 1 << 21)) -> dict:
+    """K1's field entries against their plain chains at widths ``ns``, with
+    both operands full and with one of one element (stride 0); and K1 itself
+    with such an operand.  Exact; CUDA-event times."""
+    res = {name: {"shapes": [], "max_abs_err": 0}
+           for name in ("field_add", "field_sub", "field_neg", "mont_mul_broadcast")}
+    for n in ns:
+        a = special_limbs(torch, limb, spec, n, rs, dev)
+        b = special_limbs(torch, limb, spec, n, rs, dev).flip(1).contiguous()
+        one = b[:, 7:8]  # one element of a wider array: limb stride n
+        cases = [("field_add", field_ops.field_add, field_ops.field_add_plain, (a, b), 192, 0),
+                 ("field_add", field_ops.field_add, field_ops.field_add_plain, (a, one), 128, 0),
+                 ("field_sub", field_ops.field_sub, field_ops.field_sub_plain, (a, b), 192, 0),
+                 ("field_sub", field_ops.field_sub, field_ops.field_sub_plain, (one, a), 128, 0),
+                 ("field_neg", field_ops.field_neg, field_ops.field_neg_plain, (a,), 128, 0),
+                 ("mont_mul_broadcast", mm.mont_mul, mm.mont_mul_plain, (a, one), 128,
+                  PRODUCT_MULS)]
+        for name, kern, plain, args, per_elem, muls in cases:
+            err = exact(torch, f"[18] {name} {spec.name} n={n}", kern(spec, *args),
+                        plain(spec, *args))
+            ms = cuda_ms(lambda: kern(spec, *args), 50)
+            plain_ms = cuda_ms(lambda: plain(spec, *args), 3)
+            ms2 = cuda_ms(lambda: kern(spec, *args), 50)
+            r = {"n": n, "broadcast": args[-1] is one or args[0] is one, "ms": min(ms, ms2),
+                 "plain_ms": plain_ms, **bound(peaks, per_elem * n, muls * n)}
+            res[name]["shapes"].append(r)
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+            log(f"[18] {name} {spec.name} n=2^{n.bit_length() - 1}"
+                f"{' (one operand of one element)' if r['broadcast'] else ''}: exact; kernel "
+                f"{ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.3f} ms, bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']})")
+    return res
+
+
+def stockham_bound(peaks, m: int, b: int) -> dict:
+    """Read and write each element once (64 B each), read the twiddle table;
+    k m/2 products per column."""
+    k = m.bit_length() - 1
+    return bound(peaks, 128 * m * b + 64 * (m // 2), PRODUCT_MULS * k * (m // 2) * b)
+
+
+def sixstep_bound(peaks, k: int) -> dict:
+    """The six-step at 2^k as one function: read the input and the (16, n2,
+    n1) cross-twiddle table once, write the output once (64 B an element
+    each), read the two axis tables; k n/2 + n products."""
+    n = 1 << k
+    n1, n2 = 1 << (k // 2), 1 << (k - k // 2)
+    return bound(peaks, 192 * n + 64 * (n1 // 2 + n2 // 2), PRODUCT_MULS * (k * n // 2 + n))
+
+
+def phase_stockham(torch, limb, ntt_ops, spec, rs, dev, peaks,
+                   shapes=((1 << 8, 1 << 7), (1 << 7, 1 << 8), (1 << 8, 1 << 8),
+                           (1 << 11, 1 << 10), (1, 1 << 14), (2, 1 << 14)),
+                   sixstep_ks=(15, 16)) -> dict:
+    """K1's transform entry against the plain stage loop on (16, m, B) at the
+    six-step's axis shapes (2^15: 2^8 x 2^7 then 2^7 x 2^8; 2^16; the 2^21
+    of k=20's extended domain: 2^11 x 2^10; m = 1 and 2, the axes of the
+    smallest domains; the first shape heads the kernels line), then the six-step at 2^15 and
+    2^16 on it against the six-step on the plain loop.  Exact; CUDA events."""
+    res = {"shapes": [], "max_abs_err": 0, "sixstep": []}
+    for m, b in shapes:
+        k = m.bit_length() - 1
+        x = special_limbs(torch, limb, spec, m * b, rs, dev).reshape(16, m, b)
+        omega = pow(spec.root_of_unity, 1 << (spec.s - k), spec.p)
+        tw = ntt_ops.power_table(spec, omega, m // 2, dev)
+        err = exact(torch, f"[18] stockham_axis m={m} B={b}", ntt_ops.stockham_axis(spec, x, tw, k),
+                    ntt_ops.stockham_axis_plain(spec, x, tw, k))
+        ms = cuda_ms(lambda: ntt_ops.stockham_axis(spec, x, tw, k), 20)
+        plain_ms = cuda_ms(lambda: ntt_ops.stockham_axis_plain(spec, x, tw, k), 3)
+        ms2 = cuda_ms(lambda: ntt_ops.stockham_axis(spec, x, tw, k), 20)
+        r = {"m": m, "B": b, "ms": min(ms, ms2), "plain_ms": plain_ms,
+             **stockham_bound(peaks, m, b)}
+        res["shapes"].append(r)
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        log(f"[18] stockham_axis {spec.name} m={m} B={b}: exact; kernel {ms:.4f} / {ms2:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    kernel_axis = ntt_ops.stockham_axis
+    for k in sixstep_ks:
+        n = 1 << k
+        omega = pow(spec.root_of_unity, 1 << (spec.s - k), spec.p)
+        tw = ntt_ops.power_table(spec, omega, n // 2, dev)
+        wc = ntt_ops.cross_twiddles(spec, omega, k, dev)
+        axes = ntt_ops.sixstep_twiddles(tw, k)
+        a = special_limbs(torch, limb, spec, n, rs, dev)
+
+        def sixstep():
+            return ntt_ops.ntt_sixstep(spec, a, tw, wc, k, axes)
+
+        got = sixstep()
+        ms = cuda_ms(sixstep, 20)
+        ntt_ops.stockham_axis = ntt_ops.stockham_axis_plain  # the same six-step on the plain loop
+        try:
+            want = sixstep()
+            plain_ms = cuda_ms(sixstep, 3)
+        finally:
+            ntt_ops.stockham_axis = kernel_axis
+        ms2 = cuda_ms(sixstep, 20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            sixstep()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 20
+        err = exact(torch, f"[18] ntt_sixstep n=2^{k}", got, want)
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        r = {"n": n, "ms": min(ms, ms2), "plain_ms": plain_ms, "host_wall_ms": wall_ms,
+             **sixstep_bound(peaks, k)}
+        res["sixstep"].append(r)
+        log(f"[18] ntt_sixstep n=2^{k} on stockham_axis: exact against the plain stage loop; "
+            f"{ms:.4f} / {ms2:.4f} ms (host wall {wall_ms:.4f} ms), plain {plain_ms:.3f} ms, "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    return res
+
+
 def main() -> None:
     import torch
+
+    t_start = time.perf_counter()
 
     # ---- 1: the card --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1849,10 +2010,11 @@ def main() -> None:
     from halo2_tpu_torch.curves import ec_kernels as ec
     from halo2_tpu_torch.curves import point as point_mod
     from halo2_tpu_torch.curves.spec import BN254_G1, PALLAS, VESTA
-    from halo2_tpu_torch.fields import limb
+    from halo2_tpu_torch.fields import field_ops, limb
     from halo2_tpu_torch.fields import mont_mul as mont_mul_mod
     from halo2_tpu_torch.fields.spec import BN254_FQ, BN254_FR, PASTA_FP, PASTA_FQ
     from halo2_tpu_torch.ops import msm as msm_ops
+    from halo2_tpu_torch.ops import ntt as ntt_ops
     from halo2_tpu_torch.poly import ipa as ipa_mod
     from halo2_tpu_torch.poly import kzg as kzg_mod
 
@@ -1936,9 +2098,16 @@ def main() -> None:
         "int_muladd": ic.int_muladd_chain, "int_addmask": ic.int_addmask_chain,
         "msm_digits": msm_ops.msm_digits, "ec_window_table": msm_ops.ec_window_table,
         "ec_window_fold": msm_ops.ec_window_fold,
+        "field_add": field_ops.field_add, "field_sub": field_ops.field_sub,
+        "field_neg": field_ops.field_neg, "stockham_axis": ntt_ops.stockham_axis,
     }
+    plain_on_card = PlainOnCard(
+        [(field_ops, "field_add_plain"), (field_ops, "field_sub_plain"),
+         (field_ops, "field_neg_plain"), (ntt_ops, "stockham_axis_plain"),
+         (mont_mul_mod, "mont_mul_plain")])
     os.environ["HALO2_TPU_PROFILE"] = "1"
     start_counting(torch, counted, calls.values())
+    plain_on_card.reset()
     def prove6(key):
         return create_proof(params, key, [bench], [[]], FieldRng(spec, b"bench-prove-rng"),
                             Blake2bTranscript(BN254_G1), gwc_create_proof)
@@ -1951,7 +2120,11 @@ def main() -> None:
     t0 = time.perf_counter()
     ok = verify(proof)
     walls["verify"] = time.perf_counter() - t0
-    launches = read_counts(torch, counted, "[6] keygen + 2 proves + verify:", calls)
+    launches = read_counts(torch, counted, "[6] keygen + 2 proves + verify:", calls,
+                           PATH_KERNELS + ENTRY_KERNELS)
+    log(f"[6] plain versions called on the card: {plain_on_card.calls}")
+    if any(plain_on_card.calls.values()):
+        raise AssertionError(f"[6] a plain version ran on a CUDA tensor: {plain_on_card.calls}")
     commit_m = calls["msm_many"].max_batch
     for kern, fn in (("mont_pow", "finv"), ("ec_horner", "msm_many")):
         if launches[kern] != calls[fn].calls:
@@ -2130,6 +2303,15 @@ def main() -> None:
         + ", ".join(f"({k}) {v:.1f} s" for k, v in sharded["phase_s"].items()) + ")")
     log(json.dumps({"parallel": sharded}))
 
+    # ---- 18: K1's field and transform entries against their plain versions ----
+    t0 = time.perf_counter()
+    entries = phase_field_entries(torch, limb, field_ops, mont_mul_mod, BN254_FR, rs, dev, peaks)
+    stockham = phase_stockham(torch, limb, ntt_ops, BN254_FR, rs, dev, peaks)
+    log(f"[18] K1's field and transform entries: {time.perf_counter() - t0:.1f} s")
+    log(f"[18] phases 1-18: {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"sixstep": stockham["sixstep"],
+                    "mont_mul_broadcast": entries["mont_mul_broadcast"]}))
+
     def main_path(name):
         """A prove-path kernel's launches in phases 6, 10, 11, 14, 15, 16 and 17."""
         by_phase = {"6": launches[name], "10": launches10[name], "11": launches11[name],
@@ -2187,6 +2369,12 @@ def main() -> None:
          "replaces": "halo2_tpu/curves/pallas_ec.py:161", **main_path("ec_window_fold"),
          **chain(msm_res["ec_window_fold"]), "msm_many": msm_res["msm_many"],
          "msm_many_n2e18_m7": msm_res["k18"]},
+        *({"name": name, "route": "cuda", "source": "halo2_tpu_torch/csrc/field_ops.cu",
+           "replaces": "halo2_tpu/fields/pallas_kernels.py:129", **main_path(name),
+           **chain(entries[name])} for name in ("field_add", "field_sub", "field_neg")),
+        {"name": "stockham_axis", "route": "cuda", "source": "halo2_tpu_torch/csrc/ntt.cu",
+         "replaces": "halo2_tpu/fields/pallas_kernels.py:129", **main_path("stockham_axis"),
+         **chain(stockham), "sixstep": stockham["sixstep"]},
         {"name": "mont_mul_tiled", "route": "cuda",
          "source": "halo2_tpu_torch/csrc/mont_mul_tiled.cu",
          "replaces": "halo2_tpu/fields/pallas_kernels.py:80", **roofline_path("mont_mul_tiled"),

@@ -21,7 +21,8 @@ import time
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-_SOURCES = ("mont_mul.cu", "ec.cu", "msm.cu", "mont_mul_tiled.cu", "roofline.cu")
+_SOURCES = ("mont_mul.cu", "field_ops.cu", "ntt.cu", "ec.cu", "msm.cu", "mont_mul_tiled.cu",
+            "roofline.cu")
 _HEADERS = ("field.cuh", "ec.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -38,6 +39,9 @@ _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
 _SIGNATURES = {
     "h2_mont_mul": [_P, _P, _P, _I64, _P, _U32, _P],
+    "h2_mont_mul_bcast": [_P, _P, _I64, _P, _I64, _P, _U32, _P],
+    "h2_field_op": [_I64, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P, _U32, _P],
+    "h2_stockham": [_P, _P, _P, _I64, _I64, _I64, _I64, _P, _U32, _P],
     "h2_mont_pow": [_P, _P, _I64, _P, _U32, _P, _I64, _P],
     "h2_ec_add": [_P] * 9 + [_I64, _P, _U32, _U32, _P],
     "h2_ec_double": [_P] * 6 + [_I64, _P, _U32, _U32, _P],

@@ -38,7 +38,8 @@ the trace ``trace/prove_k{K}/``.
     labelled so in the line, which measures the sharding's overhead, not
     scaling;
   * with ``--trace``, ``prove_device_busy_share_k{K}``: one more warm prove
-    under ``utils.profiling.device_trace``, written to ``trace/prove_k{K}``
+    under ``utils.profiling.device_trace`` (with its kernel launches, host
+    torch ops and the kernels' time by name), written to ``trace/prove_k{K}``
     beside ``--out``; the device time of its kernels, copies and fills over
     its wall.
 
@@ -195,16 +196,31 @@ def bench_srs(k: int, out_dir: str, device):
                     emit(f"srs_read_wall_s_k{k}", read_s, "s", 0.0)]
 
 
-def device_busy(trace_path: str) -> dict:
+def device_busy(trace_path: str) -> tuple:
     """Device time in a Chrome trace: the kernels' and the copies' and
-    fills' summed durations, in seconds."""
+    fills' summed durations, in seconds; and the counts of kernel launches
+    and host torch ops, with the kernels' time and launches by name, the
+    largest first."""
     with gzip.open(trace_path, "rt") as f:
         events = json.load(f).get("traceEvents", [])
     busy = {"kernel": 0.0, "gpu_memcpy": 0.0, "gpu_memset": 0.0}
+    counts = {"kernel_launches": 0, "host_ops": 0}
+    by_kernel: dict = {}
     for ev in events:
-        if ev.get("ph") == "X" and ev.get("cat") in busy:
+        if ev.get("ph") != "X":
+            continue
+        if ev.get("cat") in busy:
             busy[ev["cat"]] += ev.get("dur", 0) * 1e-6
-    return busy
+        if ev.get("cat") == "kernel":
+            counts["kernel_launches"] += 1
+            t = by_kernel.setdefault(ev.get("name", "")[:80], [0.0, 0])
+            t[0] += ev.get("dur", 0) * 1e-6
+            t[1] += 1
+        elif ev.get("cat") == "cpu_op":
+            counts["host_ops"] += 1
+    counts["by_kernel"] = sorted(([name, s, c] for name, (s, c) in by_kernel.items()),
+                                 key=lambda r: -r[1])[:12]
+    return busy, counts
 
 
 def prove_busy_share(k: int, prove, out_dir: str, device) -> dict:
@@ -213,10 +229,10 @@ def prove_busy_share(k: int, prove, out_dir: str, device) -> dict:
     logdir = os.path.join(out_dir, "trace", f"prove_k{k}")
     with profiling.device_trace(logdir):
         _, wall = timed(prove, device)
-    busy = device_busy(os.path.join(logdir, profiling.TRACE_FILE))
+    busy, counts = device_busy(os.path.join(logdir, profiling.TRACE_FILE))
     return emit(f"prove_device_busy_share_k{k}", sum(busy.values()) / wall,
                 "fraction of the prove wall", 0.0, wall_s=wall, kernel_s=busy["kernel"],
-                memcpy_s=busy["gpu_memcpy"], memset_s=busy["gpu_memset"])
+                memcpy_s=busy["gpu_memcpy"], memset_s=busy["gpu_memset"], **counts)
 
 
 def bench_prove(k: int, reps: int, out_dir: str, device, trace: bool = False) -> list:

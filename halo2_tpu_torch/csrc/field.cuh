@@ -47,6 +47,28 @@ __device__ __forceinline__ void store(int32_t* __restrict__ dst, int64_t n, int6
   }
 }
 
+// The same at any layout: limb l of the element at src[l * limb_stride + at].
+// A limb stride of 0 is never used; an element stride of 0 (at the same for
+// every i) reads one broadcast element.
+__device__ __forceinline__ void load_strided(uint32_t w[NW], const int32_t* __restrict__ src,
+                                             int64_t limb_stride, int64_t at) {
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    uint32_t lo = static_cast<uint32_t>(src[(2 * j) * limb_stride + at]);
+    uint32_t hi = static_cast<uint32_t>(src[(2 * j + 1) * limb_stride + at]);
+    w[j] = lo | (hi << 16);
+  }
+}
+
+__device__ __forceinline__ void store_strided(int32_t* __restrict__ dst, int64_t limb_stride,
+                                              int64_t at, const uint32_t w[NW]) {
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    dst[(2 * j) * limb_stride + at] = static_cast<int32_t>(w[j] & 0xFFFFu);
+    dst[(2 * j + 1) * limb_stride + at] = static_cast<int32_t>(w[j] >> 16);
+  }
+}
+
 // r = s - p if s >= p (or the sum carried out of 2^256), else s.
 __device__ __forceinline__ void reduce_once(uint32_t r[NW], const uint32_t s[NW],
                                             uint32_t carry, const Modulus& m) {

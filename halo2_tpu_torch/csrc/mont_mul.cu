@@ -1,5 +1,6 @@
 // K1: elementwise Montgomery product out = a * b * 2^-256 mod p, and its
-// chain entry, the power out = a^e.
+// chain entry, the power out = a^e.  mont_mul_bcast_kernel is K1 with b one
+// element read with stride 0.
 //
 // Replaces the Pallas kernel halo2_tpu/fields/pallas_kernels.py
 // mont_mul_rows (_mont_mul_rows_kernel, body fields/vreg.py vmul), which the
@@ -45,6 +46,21 @@ __global__ void mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __
   uint32_t x[h2::NW], y[h2::NW];
   h2::load(x, a, n, i);
   h2::load(y, b, n, i);
+  h2::mont_mul(x, x, y, m);
+  h2::store(out, n, i, x);
+}
+
+// b is one element (limb l at b[l * b_limb_stride]), read by every thread:
+// limb.fmul's challenges and constants, which would otherwise be expanded to
+// n elements before the product.
+__global__ void mont_mul_bcast_kernel(const int32_t* __restrict__ a,
+                                      const int32_t* __restrict__ b, int64_t b_limb_stride,
+                                      int32_t* __restrict__ out, int64_t n, h2::Modulus m) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x[h2::NW], y[h2::NW];
+  h2::load(x, a, n, i);
+  h2::load_strided(y, b, b_limb_stride, 0);
   h2::mont_mul(x, x, y, m);
   h2::store(out, n, i, x);
 }
@@ -98,6 +114,20 @@ extern "C" int h2_mont_mul(const int32_t* a, const int32_t* b, int32_t* out, int
   const int64_t blocks = (n + kThreads - 1) / kThreads;
   mont_mul_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(a, b, out, n, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same with b one element, at limb stride b_limb_stride.
+extern "C" int h2_mont_mul_bcast(const int32_t* a, const int32_t* b, int64_t b_limb_stride,
+                                 int32_t* out, int64_t n, const uint32_t* p_words, uint32_t n0,
+                                 void* stream) {
+  h2::Modulus m;
+  for (int j = 0; j < h2::NW; ++j) m.p[j] = p_words[j];
+  m.n0 = n0;
+  constexpr int kThreads = 256;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  mont_mul_bcast_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(a, b, b_limb_stride, out, n, m);
   return static_cast<int>(cudaGetLastError());
 }
 

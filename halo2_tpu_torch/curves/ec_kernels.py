@@ -37,6 +37,7 @@ import torch
 
 from .. import _cuda
 from ..fields import limb
+from ..fields.field_ops import field_add_plain, field_sub_plain
 from ..fields.mont_mul import mont_mul_plain
 from ..fields.spec import LIMB_BITS, NLIMBS, int_to_limbs
 from .spec import CurveSpec
@@ -60,12 +61,14 @@ def _b3(curve: CurveSpec, like):
 def ec_add_plain(curve: CurveSpec, p, q):
     """Complete projective addition (RCB Algorithm 7, a = 0) in torch ops.
 
-    Independent additions are stacked into one batched ``fadd``/``fsub``
-    (each costs the same ~130 small ops whatever its width).
+    Independent additions are stacked into one batched plain add/sub chain
+    (each costs the same ~130 small ops whatever its width), never K1's
+    field entries, so that the kernels' shared ``field.cuh`` is not on both
+    sides of a comparison.
     """
     f = curve.base
-    add = lambda a, b: limb.fadd(f, a, b)
-    sub = lambda a, b: limb.fsub(f, a, b)
+    add = lambda a, b: field_add_plain(f, a, b)
+    sub = lambda a, b: field_sub_plain(f, a, b)
     x1, y1, z1 = p
     x2, y2, z2 = q
 
@@ -94,7 +97,7 @@ def ec_add_plain(curve: CurveSpec, p, q):
 def ec_double_plain(curve: CurveSpec, p):
     """Complete projective doubling (RCB Algorithm 9, a = 0) in torch ops."""
     f = curve.base
-    add = lambda a, b: limb.fadd(f, a, b)
+    add = lambda a, b: field_add_plain(f, a, b)
     x, y, z = p
     m = _mul(f, _stk(y, y, z, x), _stk(y, z, z, y))  # [y^2, yz, z^2, xy]
     t0, t1, zz, xy = m[:, 0], m[:, 1], m[:, 2], m[:, 3]
@@ -103,7 +106,7 @@ def ec_double_plain(curve: CurveSpec, p):
     a1 = add(_stk(t0, t2, t0), _stk(t0, t2, t2))  # [2t0, 2t2, y3 = t0 + t2]
     a2 = add(_stk(a1[:, 0], a1[:, 1]), _stk(a1[:, 0], t2))  # [4t0, 3t2]
     z3 = add(a2[:, 0], a2[:, 0])  # 8y^2
-    t0m = limb.fsub(f, t0, a2[:, 1])
+    t0m = field_sub_plain(f, t0, a2[:, 1])
 
     m2 = _mul(f, _stk(t2, t1, t0m, t0m), _stk(z3, z3, a1[:, 2], xy))
     # [t2*z3, t1*z3, t0m*y3, t0m*xy]

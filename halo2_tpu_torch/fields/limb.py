@@ -6,13 +6,11 @@ little-endian 16-bit limbs with the **limb axis leading**: n elements are a
 2^16); CPU torch has no uint32 ``+ - >>`` or comparisons.  Values are in
 Montgomery form (v·R mod p, R = 2^256).
 
-``fmul`` goes through the K1 wrapper (``fields/mont_mul.py``) and
-``fpow_const``/``finv`` through its chain entry ``mont_pow``: the CUDA kernel
-for tensors on the card, its plain torch version for tensors on the CPU.
-``fadd``/``fsub``/``fneg`` are the reference's 16-step carry and borrow chains
-as eager torch ops (about 130 launches each; see PERF.md).  Every intermediate
-of those chains is kept non-negative (``a + 2^16 - b - borrow``), so a right
-shift never meets a negative int and stays a logical shift.
+``fmul`` goes through the K1 wrapper (``fields/mont_mul.py``),
+``fpow_const``/``finv`` through its chain entry ``mont_pow`` and
+``fadd``/``fsub``/``fneg`` through its field entries (``fields/field_ops.py``):
+one CUDA launch each for tensors on the card, the plain torch version for
+tensors on the CPU.
 
 Every function takes the :class:`FieldSpec` first; tensors carry their
 device, and constructors take an explicit ``device``.
@@ -23,11 +21,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .field_ops import field_add, field_neg, field_sub, flat_operands
 from .mont_mul import mont_mul, mont_pow
-from .spec import LIMB_BITS, LIMB_MASK, NLIMBS, FieldSpec, int_to_limbs
+from .spec import NLIMBS, FieldSpec, int_to_limbs
 
 DTYPE = torch.int32
-_BASE = 1 << LIMB_BITS
 
 
 # ---------------------------------------------------------------------------
@@ -83,64 +81,25 @@ def from_canonical_ints(spec: FieldSpec, vs, device=None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# carry / borrow chains (16 steps over the limb axis)
+# add / sub / neg: K1's field entries (fields/field_ops.py)
 # ---------------------------------------------------------------------------
 
-def _carry_propagate(digits):
-    """Normalize a list of digits (< 2^31) to 16-bit digits; drops the carry."""
-    out = []
-    carry = None
-    for d in digits:
-        v = d if carry is None else d + carry
-        out.append(v & LIMB_MASK)
-        carry = v >> LIMB_BITS
-    return out
-
-
-def cond_sub_p(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    """Reduce a (16, ...) value in [0, 2p) to [0, p) branch-free."""
-    diff = []
-    borrow = None
-    for ai, pi in zip(a, spec.p_limbs):
-        t = ai + (_BASE - int(pi))
-        if borrow is not None:
-            t = t - borrow
-        diff.append(t & LIMB_MASK)
-        borrow = 1 - (t >> LIMB_BITS)
-    # borrow == 1  =>  a < p  =>  keep a
-    return torch.where(borrow.bool().unsqueeze(0), a, torch.stack(diff))
-
-
 def fadd(spec: FieldSpec, a, b):
-    return cond_sub_p(spec, torch.stack(_carry_propagate(a + b)))
+    """a + b mod p (broadcasting): one ``field_add`` launch on the card."""
+    (a, b), shape = flat_operands(a, b)
+    return field_add(spec, a, b).reshape(shape)
 
 
 def fsub(spec: FieldSpec, a, b):
-    a, b = torch.broadcast_tensors(a, b)
-    d = []
-    borrow = None
-    for ai, bi in zip(a, b):
-        t = ai + _BASE - bi
-        if borrow is not None:
-            t = t - borrow
-        d.append(t & LIMB_MASK)
-        borrow = 1 - (t >> LIMB_BITS)
-    # a - b + p where it underflowed
-    dp = _carry_propagate([x + int(pi) for x, pi in zip(d, spec.p_limbs)])
-    return torch.where(borrow.bool().unsqueeze(0), torch.stack(dp), torch.stack(d))
+    """a - b mod p (broadcasting): one ``field_sub`` launch on the card."""
+    (a, b), shape = flat_operands(a, b)
+    return field_sub(spec, a, b).reshape(shape)
 
 
 def fneg(spec: FieldSpec, a):
-    """p - a, with 0 -> 0."""
-    d = []
-    borrow = None
-    for pi, ai in zip(spec.p_limbs, a):
-        t = (int(pi) + _BASE) - ai
-        if borrow is not None:
-            t = t - borrow
-        d.append(t & LIMB_MASK)
-        borrow = 1 - (t >> LIMB_BITS)
-    return torch.where(is_zero(a).unsqueeze(0), torch.zeros_like(a), torch.stack(d))
+    """p - a, with 0 -> 0: one ``field_neg`` launch on the card."""
+    (a,), shape = flat_operands(a)
+    return field_neg(spec, a).reshape(shape)
 
 
 def is_zero(a):
@@ -157,13 +116,10 @@ def select(cond, a, b):
 # ---------------------------------------------------------------------------
 
 def fmul(spec: FieldSpec, a, b):
-    """Montgomery product a*b/R mod p (broadcasting), through K1."""
-    a, b = torch.broadcast_tensors(a, b)
-    shape = a.shape
-    out = mont_mul(
-        spec, a.reshape(NLIMBS, -1).contiguous(), b.reshape(NLIMBS, -1).contiguous()
-    )
-    return out.reshape(shape)
+    """Montgomery product a*b/R mod p (broadcasting), through K1: an operand
+    of one element is read in place, not expanded."""
+    (a, b), shape = flat_operands(a, b)
+    return mont_mul(spec, a, b).reshape(shape)
 
 
 def fsquare(spec: FieldSpec, a):

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from .. import _cuda
+from .field_ops import check_dtype, cond_sub_p, strided_operands
 from .spec import LIMB_BITS, LIMB_MASK, NLIMBS, FieldSpec
 
 
@@ -36,6 +37,7 @@ def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.T
     every column stays below 2^38 and ``t * n0`` below 2^54 — inside int64.
     Every value is non-negative, so ``>>`` is a logical shift here.
     """
+    a, b = torch.broadcast_tensors(a, b)
     prods = a.to(torch.int64).unsqueeze(1) * b.to(torch.int64).unsqueeze(0)  # (16, 16, ...)
     # column sums of the schoolbook: row i of prods lands shifted by i (a
     # strided view of buf with buf[i, i + j] = prods[i, j]), then one sum
@@ -61,25 +63,39 @@ def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.T
         out.append(v & LIMB_MASK)
         carry = v >> LIMB_BITS
     # the value is below 2p < 2^256, so the final carry is zero
-    from .limb import cond_sub_p
-
     return cond_sub_p(spec, torch.stack(out).to(torch.int32))
 
 
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Montgomery product of two (16, n) int32 limb arrays (K1 wrapper)."""
+    """Montgomery product of two (16, n) int32 limb arrays (K1 wrapper).
+
+    One operand may be (16, 1), one element, which the kernel reads with
+    stride 0 (``mont_mul_bcast_kernel``); the product commutes, so it goes
+    second."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return mont_mul_plain(spec, a, b)
-    n = _cuda.check_operands("mont_mul", a, b)
-    out = torch.empty_like(a)
+    check_dtype("mont_mul", (a, b))
+    n, ops = strided_operands("mont_mul", a, b)
+    if ops[0][2] == 0:
+        ops = ops[::-1]
+    (a, _, a_es), (b, b_ls, b_es) = ops
+    if a_es == 0:
+        a = a.contiguous()  # n = 1: the kernel reads a at limb stride 1
+    out = torch.empty((NLIMBS, n), dtype=torch.int32, device=a.device)
     if n == 0:
         return out
     lib = _cuda.library()
     words, n0 = _cuda.modulus_args(spec)
     with torch.cuda.device(a.device):
-        rc = lib.h2_mont_mul(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), n, words, n0, _cuda.stream_ptr(a)
-        )
+        if b_es:
+            rc = lib.h2_mont_mul(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), n, words, n0, _cuda.stream_ptr(a)
+            )
+        else:
+            rc = lib.h2_mont_mul_bcast(
+                a.data_ptr(), b.data_ptr(), b_ls, out.data_ptr(), n, words, n0,
+                _cuda.stream_ptr(a),
+            )
     _cuda.check(rc, "mont_mul")
     mont_mul.launches += 1
     return out

@@ -23,7 +23,7 @@ each one hand-written CUDA launch on the card (``csrc/msm.cu``, and
 
 Each entry has a launch counter and a plain torch version beside it, which a
 CPU tensor takes: the eager steps the kernels replaced (K1's product, the
-Booth recode, ``_build_table``, the gather-select, ``limb.fneg`` and
+Booth recode, ``_build_table``, the gather-select, the plain negation and
 ``_fold_points`` over the plain EC formulas).  Kernel and plain outputs are
 equal limb for limb, projective coordinates included; a CUDA tensor launches
 the kernel or raises.
@@ -43,6 +43,7 @@ from ..curves.ec_kernels import ec_add_plain, ec_double_plain
 from ..curves.point import Point, ec_add
 from ..curves.spec import CurveSpec
 from ..fields import limb
+from ..fields.field_ops import field_neg_plain
 from ..fields.mont_mul import mont_mul_plain
 from ..fields.spec import LIMB_BITS, NLIMBS, int_to_limbs
 
@@ -262,7 +263,7 @@ def _select_window_points(curve: CurveSpec, table, digits) -> Point:
     d = digits[..., :n].long()
     cols = torch.arange(n, device=d.device)
     x, y, z = (t[:, d.abs(), cols] for t in table)  # (16, m, W, n)
-    y = torch.where((d < 0).unsqueeze(0), limb.fneg(curve.base, y), y)
+    y = torch.where((d < 0).unsqueeze(0), field_neg_plain(curve.base, y), y)
     if npad > n:
         pad = _identity_columns(curve, x, npad - n)
         x, y, z = (torch.cat([a, b], dim=-1) for a, b in zip((x, y, z), pad))

@@ -14,16 +14,22 @@ Montgomery limb tensor, as the reference's ``best_fft`` does
     Stockham NTT of size n1 along axis 1                  (batch n2)
     reshape -> X[i1*n2 + i2]  (natural order, no bit-reversal)
 
-Every Stockham stage is a contiguous half-split, one batched add, sub and
-multiply (K1) and a concat: no gathers.  The JAX package puts an XLA:TPU
-miscompile barrier after each stage; eager torch needs none.
+Each Stockham pass is one launch of K1's transform entry ``stockham_axis``
+(``csrc/ntt.cu``), which runs every stage in shared memory; its plain version
+``stockham_axis_plain`` is the JAX package's stage loop, each stage a
+contiguous half-split, one batched add, sub and multiply and a concat.  The
+JAX package puts an XLA:TPU miscompile barrier after each stage; eager torch
+needs none.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import _cuda
 from ..fields import limb
+from ..fields.field_ops import check_dtype, field_add_plain, field_sub_plain
+from ..fields.mont_mul import mont_mul_plain
 from ..fields.spec import NLIMBS, FieldSpec
 
 
@@ -90,47 +96,99 @@ def intt(spec: FieldSpec, a, inv_twiddles, k: int, n_inv_mont):
     return limb.fmul(spec, ntt(spec, a, inv_twiddles, k), n_inv_mont.reshape(NLIMBS, 1))
 
 
-def _stockham_axis1(spec: FieldSpec, x, tw, k: int):
+MAX_STAGES = 11  # stages one stockham_axis launch runs (csrc/ntt.cu kMaxStages)
+
+
+def stockham_axis_plain(spec: FieldSpec, x, tw, k: int):
     """Size-2^k DIF Stockham transform along axis 1 of (16, m, B); ``tw`` is
-    the (16, m/2) table of the m-th root's powers.  Output in natural order."""
+    the (16, m/2) table of the m-th root's powers.  Output in natural order.
+
+    Stage by stage: a half-split, one add, sub and multiply and a concat, on
+    the plain chains and ``mont_mul_plain``, never on K1's kernels."""
     m = 1 << k
     b = x.shape[2]
     x = x.reshape(NLIMBS, m, 1, b)
     for t in range(k):
         h = m >> (t + 1)
         a, c = x[:, :h], x[:, h:]
-        u = limb.fadd(spec, a, c)
+        u = field_add_plain(spec, a, c)
         w = tw[:, :: 1 << t][:, :h]  # (w^(2^t))^j for j < h
-        v = limb.fmul(spec, limb.fsub(spec, a, c), w[:, :, None, None])
+        v = mont_mul_plain(spec, field_sub_plain(spec, a, c), w[:, :, None, None])
         x = torch.cat([u, v], dim=2)  # new output bit on the slow side
     return x.reshape(NLIMBS, m, b)
 
 
-def ntt_sixstep(spec: FieldSpec, a, tw, w_cross, k: int):
+def stockham_axis(spec: FieldSpec, x, tw, k: int):
+    """:func:`stockham_axis_plain` as K1's transform entry (``csrc/ntt.cu``):
+    every stage in one launch, or one launch per ``MAX_STAGES`` stages for an
+    axis longer than 2^MAX_STAGES.  ``x`` (16, 2^k, B) and ``tw`` (16, 2^(k-1))
+    contiguous int32; a tensor on the CPU takes the plain version."""
+    check_dtype("stockham_axis", (x, tw))
+    if x.device.type == "cpu" and tw.device.type == "cpu":
+        return stockham_axis_plain(spec, x, tw, k)
+    m = 1 << k
+    for t in (x, tw):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError("stockham_axis: x and tw must lie on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError("stockham_axis: x and tw must be contiguous")
+    if x.dim() != 3 or x.shape[:2] != (NLIMBS, m) or tw.shape != (NLIMBS, m // 2):
+        raise ValueError(f"stockham_axis: x {tuple(x.shape)} and tw {tuple(tw.shape)} are not "
+                         f"(16, {m}, B) and (16, {m // 2})")
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    lib = _cuda.library()
+    words, n0 = _cuda.modulus_args(spec)
+    passes = [(t0, min(MAX_STAGES, k - t0)) for t0 in range(0, max(k, 1), MAX_STAGES)]
+    src = x
+    for t0, stages in passes:
+        out = torch.empty_like(x)
+        with torch.cuda.device(x.device):
+            rc = lib.h2_stockham(src.data_ptr(), out.data_ptr(), tw.data_ptr(), m, x.shape[2],
+                                 t0, stages, words, n0, _cuda.stream_ptr(x))
+        _cuda.check(rc, "stockham_axis")
+        stockham_axis.launches += 1
+        src = out
+    return out
+
+
+stockham_axis.launches = 0
+
+
+def sixstep_twiddles(tw, k: int) -> tuple:
+    """The six-step's two axis tables, contiguous, from the (16, 2^(k-1))
+    table ``tw`` of w's powers: (powers of w^n1, the n2-th root; powers of
+    w^n2, the n1-th root)."""
+    k1 = k // 2
+    n1, n2 = 1 << k1, 1 << (k - k1)
+    return tw[:, ::n1][:, : n2 // 2].contiguous(), tw[:, ::n2][:, : n1 // 2].contiguous()
+
+
+def ntt_sixstep(spec: FieldSpec, a, tw, w_cross, k: int, axis_tw=None):
     """DFT of a (16, 2^k) limb tensor via the six-step algorithm.
 
     ``tw``: (16, 2^(k-1)) powers of the length-n root w.  ``w_cross``: the
     (16, n2, n1) cross-twiddle table W[i2, j1] = w^(i2*j1) (:func:`cross_twiddles`).
+    ``axis_tw``: :func:`sixstep_twiddles` of ``tw``, where the caller caches it.
     """
     n = 1 << k
     assert a.shape == (NLIMBS, n)
     k1 = k // 2
     k2 = k - k1
     n1, n2 = 1 << k1, 1 << k2
+    tw2, tw1 = sixstep_twiddles(tw, k) if axis_tw is None else axis_tw
     # x[j], j = j1 + n1*j2  ->  view [j2][j1]
-    x = a.reshape(NLIMBS, n2, n1)
-    tw2 = tw[:, ::n1][:, : n2 // 2]  # powers of w^n1 (the n2-th root)
-    x = _stockham_axis1(spec, x, tw2, k2)  # Y[i2, j1]
+    x = a.reshape(NLIMBS, n2, n1).contiguous()
+    x = stockham_axis(spec, x, tw2, k2)  # Y[i2, j1]
     x = limb.fmul(spec, x, w_cross)
     x = x.transpose(1, 2).contiguous()  # (16, n1, n2)
-    tw1 = tw[:, ::n2][:, : n1 // 2]  # powers of w^n2 (the n1-th root)
-    x = _stockham_axis1(spec, x, tw1, k1)  # D[i1, i2]
+    x = stockham_axis(spec, x, tw1, k1)  # D[i1, i2]
     return x.reshape(NLIMBS, n)  # X[i1*n2 + i2]
 
 
-def intt_sixstep(spec: FieldSpec, a, inv_tw, inv_cross, k: int, n_inv_mont):
+def intt_sixstep(spec: FieldSpec, a, inv_tw, inv_cross, k: int, n_inv_mont, axis_tw=None):
     """Inverse DFT on the six-step path (forward with omega^-1, scaled)."""
-    out = ntt_sixstep(spec, a, inv_tw, inv_cross, k)
+    out = ntt_sixstep(spec, a, inv_tw, inv_cross, k, axis_tw)
     return limb.fmul(spec, out, n_inv_mont.reshape(NLIMBS, 1))
 
 

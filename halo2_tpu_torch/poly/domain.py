@@ -110,6 +110,24 @@ class EvaluationDomain:
     def _ext_tw_inv(self):
         return self._power_table(self.extended_omega_inv, self.extended_len // 2)
 
+    # the six-step's per-axis tables, contiguous (ops.ntt.sixstep_twiddles):
+    # a transform then makes no strided-slice copy of its twiddles
+    @functools.cached_property
+    def _tw_axes(self):
+        return ntt_ops.sixstep_twiddles(self._tw, self.k)
+
+    @functools.cached_property
+    def _tw_inv_axes(self):
+        return ntt_ops.sixstep_twiddles(self._tw_inv, self.k)
+
+    @functools.cached_property
+    def _ext_tw_axes(self):
+        return ntt_ops.sixstep_twiddles(self._ext_tw, self.extended_k)
+
+    @functools.cached_property
+    def _ext_tw_inv_axes(self):
+        return ntt_ops.sixstep_twiddles(self._ext_tw_inv, self.extended_k)
+
     @functools.cached_property
     def _omega_pows_full(self):
         """Full (16, n) table of omega^i (permutation numerators etc.)."""
@@ -192,7 +210,8 @@ class EvaluationDomain:
             return Poly(parallel_ntt.sharded_intt(self.spec, a.values, self.k, self.omega,
                                                   self.mesh), COEFF)
         vals = ntt_ops.intt_sixstep(
-            self.spec, a.values, self._tw_inv, self._wc_inv, self.k, self._ifft_div_mont
+            self.spec, a.values, self._tw_inv, self._wc_inv, self.k, self._ifft_div_mont,
+            self._tw_inv_axes,
         )
         return Poly(vals, COEFF)
 
@@ -201,7 +220,8 @@ class EvaluationDomain:
         if self._use_mesh(self.n):
             return Poly(parallel_ntt.sharded_ntt(self.spec, a.values, self.k, self.omega,
                                                  self.mesh), LAGRANGE)
-        return Poly(ntt_ops.ntt_sixstep(self.spec, a.values, self._tw, self._wc, self.k), LAGRANGE)
+        return Poly(ntt_ops.ntt_sixstep(self.spec, a.values, self._tw, self._wc, self.k,
+                                        self._tw_axes), LAGRANGE)
 
     def coeff_to_extended(self, a: Poly) -> Poly:
         assert a.basis == COEFF
@@ -212,7 +232,7 @@ class EvaluationDomain:
                                             self.extended_omega, self.mesh)
         else:
             vals = ntt_ops.ntt_sixstep(self.spec, vals, self._ext_tw, self._ext_wc,
-                                       self.extended_k)
+                                       self.extended_k, self._ext_tw_axes)
         return Poly(vals, EXTENDED)
 
     def extended_to_coeff(self, a: Poly):
@@ -224,7 +244,7 @@ class EvaluationDomain:
         else:
             vals = ntt_ops.intt_sixstep(
                 self.spec, a.values, self._ext_tw_inv, self._ext_wc_inv,
-                self.extended_k, self._ext_ifft_div_mont,
+                self.extended_k, self._ext_ifft_div_mont, self._ext_tw_inv_axes,
             )
         vals = limb.fmul(self.spec, vals, self._zeta_outof_ext)
         return vals[:, : self.n * self.quotient_poly_degree]

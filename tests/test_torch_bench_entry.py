@@ -156,6 +156,7 @@ def test_trace_leg_writes_under_out(tmp_path):
     assert _files(tmp_path) == ["out/trace/prove_k4/trace.json.gz"]
     assert line["metric"] == "prove_device_busy_share_k4"
     assert line["value"] == line["kernel_s"] == 0.0 and line["wall_s"] > 0
+    assert line["kernel_launches"] == 0 and line["by_kernel"] == [] and line["host_ops"] > 0
     with gzip.open(out_dir / "trace" / "prove_k4" / "trace.json.gz", "rt") as f:
         events = json.load(f)["traceEvents"]
     assert any(ev.get("cat") == "cpu_op" for ev in events)

@@ -10,7 +10,11 @@ on the Pasta fields at n = 2^16 and K2/K3 on Pallas and Vesta at n = 2^14;
 ``batch_scalar_mul`` and the device KZG setup, which run on the chains,
 against the host; the MSM entries ``msm_digits``, ``ec_window_table`` and
 ``ec_window_fold`` (``csrc/msm.cu``) against theirs, and ``msm_many`` on the
-card through them alone.  On a host with two or more cards, the sharded NTT,
+card through them alone; K1's field entries ``field_add`` / ``field_sub`` /
+``field_neg`` (``csrc/field_ops.cu``) and transform entry ``stockham_axis``
+(``csrc/ntt.cu``) against theirs, with the six-step on it against the plain
+stage loop, and K1 reading a broadcast operand in place.
+On a host with two or more cards, the sharded NTT,
 iNTT and MSM (``parallel/``) over meshes of distinct cards against one card,
 each shard's tables on its own card, and the k=6 proof over a mesh of
 distinct cards against its pin.
@@ -32,7 +36,7 @@ from halo2_tpu_torch.circuit import Value
 from halo2_tpu_torch.curves import ALL_CURVES, host, point
 from halo2_tpu_torch.curves import ec_kernels as ec
 from halo2_tpu_torch.curves.spec import BN254_G1
-from halo2_tpu_torch.fields import ALL_FIELDS, limb
+from halo2_tpu_torch.fields import ALL_FIELDS, field_ops, limb
 from halo2_tpu_torch.fields.mont_mul import (
     mont_mul, mont_mul_plain, mont_mul_tiled, mont_pow, mont_pow_plain,
 )
@@ -487,6 +491,138 @@ def test_msm_entries_check_operands_and_raise_on_a_refused_launch(dev):
                                words, n0, b3, one, _cuda.stream_ptr(table))
     with pytest.raises(RuntimeError, match="cudaError"):
         _cuda.check(rc, "ec_window_fold")
+
+
+# ---------------------------------------------------------------------------
+# K1's field entries (csrc/field_ops.cu) and transform entry (csrc/ntt.cu)
+# ---------------------------------------------------------------------------
+
+
+FIELD_OPS = [("add", field_ops.field_add, field_ops.field_add_plain),
+             ("sub", field_ops.field_sub, field_ops.field_sub_plain)]
+
+
+@pytest.mark.parametrize("name", [f.name for f in ALL_FIELDS])
+@pytest.mark.parametrize("n", [1, 255, 4099, 1 << 15])
+def test_field_entries_match_plain(dev, name, n):
+    (f,) = [f for f in ALL_FIELDS if f.name == name]
+    a = limb.from_ints(f, _values(f.p, 11, n), dev)
+    b = limb.from_ints(f, _values(f.p, 12, n)[::-1], dev)
+    one = b[:, 5 % n : 5 % n + 1]  # a (16, 1) view of a wider array: limb stride n
+    for _, kern, plain in FIELD_OPS:
+        assert torch.equal(kern(f, a, b), plain(f, a, b))
+        assert torch.equal(kern(f, a, one), plain(f, a, one))
+        assert torch.equal(kern(f, one, a), plain(f, one, a))
+    assert torch.equal(field_ops.field_neg(f, a), field_ops.field_neg_plain(f, a))
+    assert torch.equal(field_ops.field_neg(f, one), field_ops.field_neg_plain(f, one))
+
+
+@pytest.mark.parametrize("name", [f.name for f in ALL_FIELDS])
+def test_limb_ops_at_the_provers_broadcast_shapes_match_plain(dev, name):
+    (f,) = [f for f in ALL_FIELDS if f.name == name]
+    x = limb.from_ints(f, _values(f.p, 13, 3 * 4 * 5), dev).reshape(16, 3, 4, 5)
+    y = limb.from_ints(f, _values(f.p, 14, 3 * 5), dev).reshape(16, 3, 1, 5)
+    c = limb.from_ints(f, _values(f.p, 15, 1), dev).reshape(16, 1, 1, 1)
+    for op, _, plain in FIELD_OPS:
+        fn = getattr(limb, "f" + op)
+        for u, v in ((x, y), (y, x), (x, c), (c, y), (x[:, :, ::2], y)):
+            assert torch.equal(fn(f, u, v), plain(f, *torch.broadcast_tensors(u, v)))
+    assert torch.equal(limb.fneg(f, x[:, :, 1:3]), field_ops.field_neg_plain(f, x[:, :, 1:3]))
+    for u, v in ((x, y), (x, c), (c, x)):
+        want = mont_mul_plain(f, *(t.expand(x.shape).reshape(16, -1) for t in (u, v)))
+        assert torch.equal(limb.fmul(f, u, v), want.reshape(x.shape))
+
+
+@pytest.mark.parametrize("name", [f.name for f in ALL_FIELDS])
+def test_mont_mul_reads_a_broadcast_operand_in_place(dev, name):
+    (f,) = [f for f in ALL_FIELDS if f.name == name]
+    a = limb.from_ints(f, _values(f.p, 16, 4099), dev)
+    wide = limb.from_ints(f, _values(f.p, 17, 10), dev)
+    one = wide[:, 3:4]  # limb stride 10
+    want = mont_mul_plain(f, a, one.expand(a.shape))
+    before = mont_mul.launches
+    assert torch.equal(mont_mul(f, a, one), want)
+    assert torch.equal(mont_mul(f, one, a), want)
+    assert mont_mul.launches == before + 2
+    # two single elements, both views of wider arrays (the IPA's last round)
+    assert torch.equal(mont_mul(f, wide[:, 5:6], one), mont_mul_plain(f, wide[:, 5:6], one))
+
+
+def _stockham_operands(f, k: int, b: int, seed: int, dev):
+    m = 1 << k
+    omega = pow(f.root_of_unity, 1 << (f.s - k), f.p)
+    x = limb.from_ints(f, _values(f.p, seed, m * b), dev).reshape(16, m, b)
+    return x, ntt_ops.power_table(f, omega, m // 2, dev)
+
+
+@pytest.mark.parametrize("name", ["bn254_fr", "pasta_fp"])
+@pytest.mark.parametrize("k, b", [(0, 5), (1, 3), (2, 1), (3, 16), (7, 256), (8, 128),
+                                  (8, 256), (11, 8), (12, 3), (13, 1)])
+def test_stockham_axis_matches_plain(dev, name, k, b):
+    (f,) = [f for f in ALL_FIELDS if f.name == name]
+    x, tw = _stockham_operands(f, k, b, 20 + k, dev)
+    before = ntt_ops.stockham_axis.launches
+    got = ntt_ops.stockham_axis(f, x, tw, k)
+    assert ntt_ops.stockham_axis.launches == before + max(1, -(-k // ntt_ops.MAX_STAGES))
+    assert torch.equal(got, ntt_ops.stockham_axis_plain(f, x, tw, k))
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 6, 15, 16])
+def test_sixstep_on_the_stockham_entry_matches_the_plain_stage_loop(dev, monkeypatch, k):
+    f, n = BN254_G1.scalar, 1 << k
+    omega = pow(f.root_of_unity, 1 << (f.s - k), f.p)
+    inv = pow(omega, -1, f.p)
+    a = limb.from_ints(f, _values(f.p, 30 + k, n), dev)
+    tw, tw_inv = (ntt_ops.power_table(f, w, n // 2, dev) for w in (omega, inv))
+    wc, wc_inv = (ntt_ops.cross_twiddles(f, w, k, dev) for w in (omega, inv))
+    n_inv = limb.from_int(f, pow(n, -1, f.p), dev)
+    before = ntt_ops.stockham_axis.launches
+    got = ntt_ops.ntt_sixstep(f, a, tw, wc, k)
+    back = ntt_ops.intt_sixstep(f, got, tw_inv, wc_inv, k, n_inv)
+    assert ntt_ops.stockham_axis.launches == before + 4
+    assert torch.equal(back, a)
+    monkeypatch.setattr(ntt_ops, "stockham_axis", ntt_ops.stockham_axis_plain)
+    assert torch.equal(got, ntt_ops.ntt_sixstep(f, a, tw, wc, k))
+
+
+def test_field_and_transform_entries_check_operands_and_count_launches(dev):
+    f = ALL_FIELDS[0]
+    a = limb.from_ints(f, _values(f.p, 40, 64), dev)
+    for name, fn, _ in FIELD_OPS + [("neg", lambda f, x, y: field_ops.field_neg(f, x), None)]:
+        with pytest.raises(ValueError, match="int32"):
+            fn(f, a.long(), a)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(f, a[:, ::2], a[:, ::2])
+        if name != "neg":
+            for x, y in ((a.cpu(), a), (a, a.cpu())):
+                with pytest.raises(ValueError, match="CUDA"):
+                    fn(f, x, y)
+            with pytest.raises(ValueError, match="differ"):
+                fn(f, a, a[:, :32])
+        wrapper = getattr(field_ops, "field_" + name)
+        before = wrapper.launches
+        fn(f, a, a)
+        assert wrapper.launches == before + 1
+        assert fn(f, a[:, :0], a[:, :0]).shape == (16, 0)
+        assert wrapper.launches == before + 1  # nothing to launch for n = 0
+    x, tw = _stockham_operands(f, 4, 8, 41, dev)
+    with pytest.raises(ValueError, match="int32"):
+        ntt_ops.stockham_axis(f, x.long(), tw.long(), 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ntt_ops.stockham_axis(f, x, tw.cpu(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ntt_ops.stockham_axis(f, x[:, :, ::2], tw, 4)
+    with pytest.raises(ValueError, match="B"):
+        ntt_ops.stockham_axis(f, x, tw, 3)
+    # the C entry refuses a pass of more stages than its shared memory holds,
+    # and the wrapper's check raises on its error code
+    lib = _cuda.library()
+    words, n0 = _cuda.modulus_args(f)
+    big = torch.empty((16, 1 << 12, 1), dtype=torch.int32, device=dev)
+    rc = lib.h2_stockham(big.data_ptr(), big.data_ptr(), tw.data_ptr(), 1 << 12, 1, 0, 12,
+                         words, n0, _cuda.stream_ptr(big))
+    with pytest.raises(RuntimeError, match="cudaError"):
+        _cuda.check(rc, "stockham_axis")
 
 
 # ---------------------------------------------------------------------------
