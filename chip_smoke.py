@@ -148,9 +148,24 @@ Phases, one line each, every failure raising (non-zero exit, no result line):
    plain stage loop on (16, m, B) at m = 1, 2, 2^7, 2^8 and 2^11 (the
    six-step's axis shapes at 2^15, 2^16 and 2^21); ``ntt_sixstep`` at 2^15
    and 2^16 on it against the six-step on the plain loop.  Exact equality;
-   kernel and plain times and each bound.
+   kernel and plain times and each bound;
+19. the last of the public surface: (a) ``EvaluationDomain``,
+   ``keygen.create_domain`` and ``keygen.batch_invert_assigned`` given no
+   device put their tables and polys on the card; (b) on BN254 Fr at n =
+   2^16 (0, 1 and p-1 included), ``limb.fdbl``, ``Poly.add`` / ``sub`` /
+   ``mul_pointwise`` / ``scale`` / ``rotate`` (cur, prev, next),
+   ``arith.eval_lagrange`` and the domain's ``constant_lagrange`` and
+   ``empty_*`` each equal the same call on the CPU, with the launches each
+   makes (``fdbl`` and ``add`` one ``field_add``, ``sub`` one ``field_sub``,
+   ``mul_pointwise`` one K1, ``scale`` one K1 through its broadcast entry
+   on the scalar's own storage, ``eval_lagrange`` one K1 and log2 n
+   ``field_add``), and ``limb.to_int`` and ``len``; (c) the permutation
+   assembly's ``build_vk`` (one MSM a column) and ``build_pk`` on phase 6's
+   keygen synthesis equal the keys' commitments (affine) and polys,
+   ``get_vk()`` is the vk, and a curve-less copy of phase 6's vk gives the
+   same ``pinned()`` and ``transcript_repr`` on the card as on the CPU.
 
-Phases 6, 10, 11, 14, 15, 16 and 17 each zero the kernels' launch counters (and
+Phases 6, 10, 11, 14, 15, 16, 17 and 19 each zero the kernels' launch counters (and
 the calls of ``limb.finv`` and ``msm_many``) just before they start and read
 them just after; K1, ``mont_pow``, ``ec_horner`` and the three MSM entries
 must each have been launched (and K2 and ``ec_scalar_mul`` in phases 11, 15
@@ -160,8 +175,10 @@ folds the shards' partial MSMs); on each,
 ``msm_many`` calls and ``ec_window_fold`` launches lie between one and three
 times them, and on phase 6 ``mont_pow`` launches must equal the ``finv`` calls,
 the standalone K2 / K3 launches be 0, ``field_add``, ``field_sub``,
-``field_neg`` and ``stockham_axis`` each be launched, and no plain version
-(the carry chains, the stage loop, K1's) be called on a CUDA tensor. Then one JSON line with every
+``field_neg`` and ``stockham_axis`` each be launched, and on phases 6 and 19
+no plain version (the carry chains, the stage loop, K1's) be called on a CUDA
+tensor (in 19, ``field_add``, ``field_sub`` and ``stockham_axis`` must be
+launched). Then one JSON line with every
 kernel's launches by phase, error, times and bound, and as the last line
 ``{"ok": true, "device": {...}}``. Times are CUDA-event times on this card,
 kernel and plain version measured in the same run. A bound is the larger of
@@ -1986,6 +2003,158 @@ def phase_stockham(torch, limb, ntt_ops, spec, rs, dev, peaks,
     return res
 
 
+class LibSpy:
+    """The kernel library, recording each C entry called and its arguments:
+    which entry K1 took, and on whose storage."""
+
+    def __init__(self, lib):
+        self.lib, self.calls = lib, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def call(*args):
+            self.calls.append((name, args))
+            return fn(*args)
+
+        return call
+
+
+def phase_surface_defaults(torch, spec, circuit_cls, dev) -> None:
+    """19 (a): the domain entry points and ``batch_invert_assigned``, given no
+    device, put their tensors on the card."""
+    from halo2_tpu_torch.plonk import keygen
+    from halo2_tpu_torch.poly.domain import EvaluationDomain
+
+    domains = {"EvaluationDomain": EvaluationDomain(spec, 3, 16),
+               "create_domain": keygen.create_domain(spec, circuit_cls, 14)[0]}
+    for name, d in domains.items():
+        if d.device.type != "cuda" or not d._tw.is_cuda or not d.empty_lagrange().values.is_cuda:
+            raise AssertionError(f"[19] (a) {name} without a device is on {d.device}")
+    (col,) = keygen.batch_invert_assigned(spec, [{}], 1 << 10)
+    if not col.values.is_cuda:
+        raise AssertionError(f"[19] (a) batch_invert_assigned without a device is on "
+                             f"{col.values.device}")
+    log(f"[19] (a) EvaluationDomain, create_domain and batch_invert_assigned without a device: "
+        f"tables and polys on {domains['EvaluationDomain'].device}")
+
+
+def phase_surface_ops(torch, counted, spec, rs, dev, n: int = 1 << 16) -> dict:
+    """19 (b): ``limb.fdbl``, ``Poly``'s algebra, ``arith.eval_lagrange`` and
+    the domain's constructors on the card, each equal to the same call on the
+    CPU, with the kernel launches each makes (``scale`` through K1's
+    broadcast entry on the scalar's own storage); CUDA-event times."""
+    from halo2_tpu_torch import _cuda
+    from halo2_tpu_torch.fields import limb
+    from halo2_tpu_torch.ops import arith
+    from halo2_tpu_torch.poly.domain import EvaluationDomain
+    from halo2_tpu_torch.poly.polynomial import LAGRANGE, Poly, Rotation
+
+    a = special_limbs(torch, limb, spec, n, rs, dev)
+    b = special_limbs(torch, limb, spec, n, rs, dev).flip(1).contiguous()
+    scalar = special_limbs(torch, limb, spec, 8, rs, dev)[:, 5]  # limb stride 8
+    x, y = Poly(a, LAGRANGE), Poly(b, LAGRANGE)
+    xc, yc = Poly(a.cpu(), LAGRANGE), Poly(b.cpu(), LAGRANGE)
+    k = n.bit_length() - 1
+    dom, dom_cpu = EvaluationDomain(spec, 3, k, dev), EvaluationDomain(spec, 3, k, "cpu")
+    one = limb.from_ints(spec, [7], dev)[:, 0]
+    names = ("field_add", "field_sub", "mont_mul")
+    cases = [  # (name, card call, CPU call, launches of field_add, field_sub, K1)
+        ("fdbl", lambda: limb.fdbl(spec, a), lambda: limb.fdbl(spec, a.cpu()), (1, 0, 0)),
+        ("Poly.add", lambda: x.add(spec, y).values, lambda: xc.add(spec, yc).values, (1, 0, 0)),
+        ("Poly.sub", lambda: x.sub(spec, y).values, lambda: xc.sub(spec, yc).values, (0, 1, 0)),
+        ("Poly.mul_pointwise", lambda: x.mul_pointwise(spec, y).values,
+         lambda: xc.mul_pointwise(spec, yc).values, (0, 0, 1)),
+        ("Poly.scale", lambda: x.scale(spec, scalar).values,
+         lambda: xc.scale(spec, scalar.cpu()).values, (0, 0, 1)),
+        *((f"Poly.rotate({r})", lambda r=r: x.rotate(getattr(Rotation, r)()).values,
+           lambda r=r: xc.rotate(getattr(Rotation, r)()).values, (0, 0, 0))
+          for r in ("cur", "prev", "next")),
+        ("eval_lagrange", lambda: arith.eval_lagrange(spec, a, b),
+         lambda: arith.eval_lagrange(spec, a.cpu(), b.cpu()), (k, 0, 1)),
+        ("constant_lagrange", lambda: dom.constant_lagrange(one).values,
+         lambda: dom_cpu.constant_lagrange(one.cpu()).values, (0, 0, 0)),
+        *((name, lambda name=name: getattr(dom, name)().values,
+           lambda name=name: getattr(dom_cpu, name)().values, (0, 0, 0))
+          for name in ("empty_lagrange", "empty_coeff", "empty_extended")),
+    ]
+    res = {"n": n, "ops": {}}
+    for name, card, cpu, want in cases:
+        before = [counted[c].launches for c in names]
+        got = card()
+        torch.cuda.synchronize()
+        got_launches = tuple(counted[c].launches - b0 for c, b0 in zip(names, before))
+        if not got.is_cuda or got_launches != want:
+            raise AssertionError(f"[19] (b) {name}: on {got.device}, launches {got_launches} "
+                                 f"of {names}, expected {want}")
+        exact(torch, f"[19] (b) {name} card against CPU", got.cpu(), cpu())
+        held = {c: fn.launches for c, fn in counted.items()}
+        ms = cuda_ms(card, 20)
+        for c, fn in counted.items():  # the timing runs' launches are not the path's
+            fn.launches = held[c]
+        res["ops"][name] = {"launches": dict(zip(names, want)), "ms": ms}
+        log(f"[19] (b) {name} n=2^{k}: equal to the CPU call; launches "
+            f"{dict(zip(names, want))}; {ms:.4f} ms")
+    spy = LibSpy(_cuda.library())
+    library = _cuda.library
+    _cuda.library = lambda: spy
+    try:
+        x.scale(spec, scalar)
+    finally:
+        _cuda.library = library
+    if [(c, args[1]) for c, args in spy.calls] != [("h2_mont_mul_bcast", scalar.data_ptr())]:
+        raise AssertionError(f"[19] (b) Poly.scale did not read its scalar in place: "
+                             f"{[c for c, _ in spy.calls]}")
+    if limb.to_int(spec, scalar) != limb.to_int(spec, scalar.cpu()) or len(x) != n:
+        raise AssertionError("[19] (b) to_int or len differs on the card")
+    log("[19] (b) Poly.scale: one h2_mont_mul_bcast on the scalar's own storage, no copy; "
+        "to_int and len equal")
+    return res
+
+
+def phase_surface_keys(torch, params, vk, pk) -> dict:
+    """19 (c): the permutation assembly's ``build_vk`` / ``build_pk`` on phase
+    6's keygen synthesis against the keys' own, ``get_vk`` and ``pinned``, and
+    a curve-less copy of the vk against the same copy on the CPU."""
+    from halo2_tpu_torch.curves.point import to_affine_ints
+    from halo2_tpu_torch.plonk.keygen import VerifyingKey
+    from halo2_tpu_torch.poly.domain import EvaluationDomain
+
+    domain, cs, assembly = vk.synthesis[:3]
+    t0 = time.perf_counter()
+    pvk = assembly.permutation.build_vk(params, domain, cs.permutation)
+    got = [to_affine_ints(params.curve, c)[0] for c in pvk.commitments]
+    build_vk_s = time.perf_counter() - t0
+    if got != vk.permutation_commitments:
+        raise AssertionError("[19] (c) build_vk's commitments differ from keygen_vk's")
+    t0 = time.perf_counter()
+    ppk = assembly.permutation.build_pk(params, domain, cs.permutation)
+    torch.cuda.synchronize()
+    build_pk_s = time.perf_counter() - t0
+    for name in ("permutations", "polys", "cosets"):
+        ours, theirs = getattr(ppk, name), getattr(pk.permutation, name)
+        if len(ours) != len(theirs) or not all(
+                a.basis == b.basis and a.values.is_cuda and torch.equal(a.values, b.values)
+                for a, b in zip(ours, theirs)):
+            raise AssertionError(f"[19] (c) build_pk's {name} differ from keygen_pk's")
+    pinned = vk.pinned()
+    if pk.get_vk() is not vk or pinned["domain"] != {
+            "k": domain.k, "extended_k": domain.extended_k, "omega": domain.omega}:
+        raise AssertionError(f"[19] (c) get_vk or pinned() wrong: {pinned['domain']}")
+    args = (vk.fixed_commitments, vk.permutation_commitments, vk.selectors)
+    card = VerifyingKey(domain, cs, *args)
+    cpu = VerifyingKey(EvaluationDomain(domain.spec, cs.degree(), domain.k, "cpu"), cs, *args)
+    if repr(card.pinned()) != repr(cpu.pinned()) or card.transcript_repr != cpu.transcript_repr:
+        raise AssertionError("[19] (c) the curve-less vk differs between the card and the CPU")
+    if card.transcript_repr == vk.transcript_repr or repr(pinned) != repr(card.pinned()):
+        raise AssertionError("[19] (c) the curve-less vk's pinned() or transcript_repr is wrong")
+    log(f"[19] (c) build_vk ({len(got)} commitments, {build_vk_s:.3f} s) and build_pk "
+        f"({build_pk_s:.3f} s) equal the keys'; get_vk() is the vk; curve-less transcript_repr "
+        f"{card.transcript_repr:#x} equal on the card and the CPU")
+    return {"build_vk_s": build_vk_s, "build_pk_s": build_pk_s,
+            "permutation_columns": len(got)}
+
+
 def main() -> None:
     import torch
 
@@ -2308,19 +2477,35 @@ def main() -> None:
     entries = phase_field_entries(torch, limb, field_ops, mont_mul_mod, BN254_FR, rs, dev, peaks)
     stockham = phase_stockham(torch, limb, ntt_ops, BN254_FR, rs, dev, peaks)
     log(f"[18] K1's field and transform entries: {time.perf_counter() - t0:.1f} s")
-    log(f"[18] phases 1-18: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"sixstep": stockham["sixstep"],
                     "mont_mul_broadcast": entries["mont_mul_broadcast"]}))
 
+    # ---- 19: the last of the public surface, on the card -----------------------
+    t0 = time.perf_counter()
+    start_counting(torch, counted, calls.values())
+    plain_on_card.reset()
+    phase_surface_defaults(torch, spec, BenchPlonkCircuit, dev)
+    surface = phase_surface_ops(torch, counted, BN254_FR, rs, dev)
+    surface["keys"] = phase_surface_keys(torch, params, vk, pk)
+    launches19 = read_counts(torch, counted, "[19]", calls,
+                             PATH_KERNELS + ("field_add", "field_sub", "stockham_axis"))
+    check_msm_launches("[19]", launches19, calls)
+    if any(plain_on_card.calls.values()):
+        raise AssertionError(f"[19] a plain version ran on a CUDA tensor: {plain_on_card.calls}")
+    surface["phase_s"] = time.perf_counter() - t0
+    log(f"[19] the last of the public surface: {surface['phase_s']:.1f} s")
+    log(f"[19] phases 1-19: {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"surface": surface}))
+
     def main_path(name):
-        """A prove-path kernel's launches in phases 6, 10, 11, 14, 15, 16 and 17."""
+        """A prove-path kernel's launches in phases 6, 10, 11, 14, 15, 16, 17 and 19."""
         by_phase = {"6": launches[name], "10": launches10[name], "11": launches11[name],
                     "14": launches14[name], "15": launches15[name], "16": launches16[name],
-                    "17": launches17[name]}
+                    "17": launches17[name], "19": launches19[name]}
         return {"launches": sum(by_phase.values()), "launches_by_phase": by_phase}
 
     def roofline_path(name):
-        """A roofline kernel's launches (phase 8); phases 6, 10, 11, 14, 15, 16 and 17 run none."""
+        """A roofline kernel's launches (phase 8); phases 6, 10, 11, 14-17 and 19 run none."""
         return {"launches": roof_launches[name],
                 "launches_by_phase": {**main_path(name)["launches_by_phase"],
                                       "8": roof_launches[name]}}

@@ -11,3 +11,5 @@ issue-rate chains B1 / B2 of the roofline (``bench/``).  ``parallel/``
 shards the NTTs and MSMs of keygen and ``create_proof`` over a mesh of
 devices held by one process (``mesh=``).
 """
+
+__version__ = "0.1.0"

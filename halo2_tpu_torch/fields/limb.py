@@ -80,6 +80,12 @@ def from_canonical_ints(spec: FieldSpec, vs, device=None) -> torch.Tensor:
     return to_mont(spec, torch.from_numpy(ints_to_limbs_np(vs)).to(device))
 
 
+def to_int(spec: FieldSpec, a: torch.Tensor) -> int:
+    """One Montgomery element (16,) or (16, 1) -> its canonical int."""
+    (v,) = to_ints(spec, a)
+    return v
+
+
 # ---------------------------------------------------------------------------
 # add / sub / neg: K1's field entries (fields/field_ops.py)
 # ---------------------------------------------------------------------------
@@ -100,6 +106,11 @@ def fneg(spec: FieldSpec, a):
     """p - a, with 0 -> 0: one ``field_neg`` launch on the card."""
     (a,), shape = flat_operands(a)
     return field_neg(spec, a).reshape(shape)
+
+
+def fdbl(spec: FieldSpec, a):
+    """2a mod p: one ``field_add`` launch on the card."""
+    return fadd(spec, a, a)
 
 
 def is_zero(a):

@@ -61,6 +61,11 @@ def eval_polynomials_batched(spec: FieldSpec, coeffs, x_mont):
     return _tree_sum(spec, limb.fmul(spec, coeffs, table[:, :, :n]))
 
 
+def eval_lagrange(spec: FieldSpec, values, li):
+    """Inner product of Lagrange values with a precomputed l_i(x) table."""
+    return reduce_add(spec, limb.fmul(spec, values, li))
+
+
 def kate_division(spec: FieldSpec, coeffs, b: int):
     """q(X) = (p(X) - p(b)) / (X - b) for canonical host scalar b != 0.
 

@@ -16,6 +16,7 @@ import hashlib
 from typing import List
 
 import numpy as np
+import torch
 
 from ..circuit.layouter import Assignment
 from ..circuit.value import Assigned, Value, to_assigned
@@ -272,9 +273,11 @@ class KeygenAssembly(Assignment):
             col[row] = v
 
 
-def batch_invert_assigned(spec: FieldSpec, columns: List[dict], n: int, device=None) -> List[Poly]:
+def batch_invert_assigned(spec: FieldSpec, columns: List[dict], n: int,
+                          device="cuda") -> List[Poly]:
     """Materialize Assigned columns: num * den^-1, batched on the device
     (reference poly.rs:180-209)."""
+    device = torch.device(device)  # None raises, as in EvaluationDomain: no silent CPU
     if not columns:
         return []
     p = spec.p
@@ -307,7 +310,7 @@ class VerifyingKey:
     """plonk.rs:49-259."""
 
     def __init__(self, domain, cs, fixed_commitments, permutation_commitments, selectors,
-                 curve, synthesis=None):
+                 curve=None, synthesis=None):
         self.domain: EvaluationDomain = domain
         self.cs: ConstraintSystem = cs
         self.fixed_commitments = fixed_commitments  # host affine points
@@ -321,16 +324,32 @@ class VerifyingKey:
         self.synthesis = synthesis
         self.transcript_repr = self._compute_repr()
 
+    def pinned(self):
+        return {
+            "base_modulus": "<curve base>",
+            "scalar_modulus": hex(self.domain.spec.p),
+            "domain": self.domain.pinned(),
+            "cs": self.cs.pinned(),
+            "fixed_commitments": self.fixed_commitments,
+            "permutation": self.permutation_commitments,
+        }
+
     def _compute_repr(self) -> int:
         """Blake2b('Halo2-Verify-Key') over Rust's `{:?}` Debug formatting of
-        PinnedVerificationKey, byte-identical to plonk.rs:192-206 (the hash
-        input is `s.len() as u64 LE || s`)."""
-        from .rust_debug import pinned_vk_debug
-
+        PinnedVerificationKey, byte-identical to plonk.rs:192-206 when the
+        curve is known (the hash input is `s.len() as u64 LE || s`); over
+        ``repr(self.pinned())`` for a curve-less key, as the JAX package."""
         h = hashlib.blake2b(digest_size=64, person=b"Halo2-Verify-Key")
-        s = pinned_vk_debug(self, self.curve.base.p, self.curve.scalar.p, alternate=False).encode()
-        h.update(len(s).to_bytes(8, "little"))
-        h.update(s)
+        if self.curve is not None:
+            from .rust_debug import pinned_vk_debug
+
+            s = pinned_vk_debug(
+                self, self.curve.base.p, self.curve.scalar.p, alternate=False
+            ).encode()
+            h.update(len(s).to_bytes(8, "little"))
+            h.update(s)
+        else:
+            h.update(repr(self.pinned()).encode())
         return self.domain.spec.from_bytes_wide(h.digest())
 
     def hash_into(self, transcript):
@@ -360,13 +379,16 @@ class ProvingKey:
         self.permutation = permutation_pk
         self.ev = ev
 
+    def get_vk(self):
+        return self.vk
+
 
 # ---------------------------------------------------------------------------
 # keygen entry points (keygen.rs:203-367)
 # ---------------------------------------------------------------------------
 
 
-def create_domain(spec: FieldSpec, circuit_cls, k: int, device=None):
+def create_domain(spec: FieldSpec, circuit_cls, k: int, device="cuda"):
     cs = ConstraintSystem()
     config = circuit_cls.configure(cs)
     domain = EvaluationDomain(spec, cs.degree(), k, device)

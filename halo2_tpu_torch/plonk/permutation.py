@@ -86,6 +86,21 @@ class PermutationAssembly:
         sigma = do[:, flat]  # (16, m*n)
         return [Poly(sigma[:, i * n : (i + 1) * n], LAGRANGE) for i in range(m)]
 
+    def build_vk(self, params, domain: EvaluationDomain, p: PermutationArgument):
+        """One commitment a sigma column, each with Blind::default() = 1
+        (keygen.rs:247-250); keygen batches the same commitments in one MSM."""
+        sigmas = self.sigma_lagrange(domain.spec, domain)
+        return PermutationVK([params.commit_lagrange(s, 1) for s in sigmas])
+
+    def build_pk(self, params, domain: EvaluationDomain, p: PermutationArgument):
+        return build_pk(domain, self.sigma_lagrange(domain.spec, domain))
+
+
+class PermutationVK:
+    def __init__(self, commitments):
+        # projective device Points; normalized to host affine by the caller
+        self.commitments = commitments
+
 
 class PermutationPK:
     def __init__(self, permutations, polys, cosets):

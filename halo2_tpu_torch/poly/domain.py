@@ -24,13 +24,15 @@ from .polynomial import COEFF, EXTENDED, LAGRANGE, Poly, Rotation
 
 
 class EvaluationDomain:
-    def __init__(self, spec: FieldSpec, j: int, k: int, device=None):
+    def __init__(self, spec: FieldSpec, j: int, k: int, device="cuda"):
         """j = max constraint degree (quotient spans (j-1)*n); k = log2 rows.
 
-        Mirrors EvaluationDomain::new (poly/domain.rs:39-142).
+        Mirrors EvaluationDomain::new (poly/domain.rs:39-142).  The tables and
+        every poly the domain makes live on ``device``, the card unless the
+        caller names another (a CPU caller passes ``device="cpu"``).
         """
         self.spec = spec
-        self.device = torch.device(device or "cpu")
+        self.device = torch.device(device)
         p = spec.p
         self.k = k
         self.n = 1 << k
@@ -197,8 +199,30 @@ class EvaluationDomain:
     def extended_len(self) -> int:
         return 1 << self.extended_k
 
+    def empty_lagrange(self) -> Poly:
+        return Poly(limb.zeros((self.n,), self.device), LAGRANGE)
+
+    def empty_coeff(self) -> Poly:
+        return Poly(limb.zeros((self.n,), self.device), COEFF)
+
+    def empty_extended(self) -> Poly:
+        return Poly(limb.zeros((self.extended_len,), self.device), EXTENDED)
+
+    # the constants are expanded views of one element: read them, never
+    # write into them in place
+    def constant_lagrange(self, value_mont) -> Poly:
+        return Poly(value_mont.reshape(NLIMBS, 1).expand(NLIMBS, self.n), LAGRANGE)
+
     def constant_extended(self, value_mont) -> Poly:
         return Poly(value_mont.reshape(NLIMBS, 1).expand(NLIMBS, self.extended_len), EXTENDED)
+
+    def lagrange_from_vec(self, values) -> Poly:
+        assert values.shape == (NLIMBS, self.n)
+        return Poly(values, LAGRANGE)
+
+    def coeff_from_vec(self, values) -> Poly:
+        assert values.shape == (NLIMBS, self.n)
+        return Poly(values, COEFF)
 
     # ------------------------------------------------------------------
     # transforms (poly/domain.rs:225-331)
@@ -284,3 +308,6 @@ class EvaluationDomain:
 
     def get_quotient_poly_degree(self) -> int:
         return self.quotient_poly_degree
+
+    def pinned(self):
+        return {"k": self.k, "extended_k": self.extended_k, "omega": self.omega}

@@ -32,7 +32,9 @@ from halo2_tpu_torch.fields import ALL_FIELDS, limb
 from halo2_tpu_torch.fields import mont_mul as mont_mul_mod
 from halo2_tpu_torch.ops import msm as msm_ops
 from halo2_tpu_torch.ops import scalar_mul
+from halo2_tpu_torch.plonk import keygen
 from halo2_tpu_torch.poly import ipa, kzg
+from halo2_tpu_torch.poly.domain import EvaluationDomain
 
 torch.set_num_threads(1)  # tiny limb tensors: one thread is faster, and xdist runs several workers
 
@@ -196,9 +198,10 @@ def test_msm_many_folds_its_windows_in_one_ec_horner(monkeypatch):
 @pytest.mark.parametrize("fn", [
     kzg.ParamsKZG.setup, kzg.ParamsKZG.setup_host, kzg.ParamsKZG.read, kzg.params_from_numpy,
     ipa.ParamsIPA.setup, ipa.params_from_numpy,
+    EvaluationDomain, keygen.create_domain, keygen.batch_invert_assigned,
 ], ids=lambda fn: fn.__qualname__)
 def test_params_entry_points_default_to_the_card(fn):
-    """Params made without a device live on the card, and so does every
-    tensor of a proof made with them; CPU callers pass device="cpu"."""
+    """Params and domains made without a device live on the card, and so does
+    every tensor of a proof made with them; CPU callers pass device="cpu"."""
     default = inspect.signature(fn).parameters["device"].default
     assert torch.device(default).type == "cuda"

@@ -13,7 +13,10 @@ against the host; the MSM entries ``msm_digits``, ``ec_window_table`` and
 card through them alone; K1's field entries ``field_add`` / ``field_sub`` /
 ``field_neg`` (``csrc/field_ops.cu``) and transform entry ``stockham_axis``
 (``csrc/ntt.cu``) against theirs, with the six-step on it against the plain
-stage loop, and K1 reading a broadcast operand in place.
+stage loop, and K1 reading a broadcast operand in place; the last public
+functions of the port (``limb.fdbl`` / ``to_int``, ``arith.eval_lagrange``,
+``Poly``'s algebra, the domain's constructors) on the card against the same
+calls on the CPU, with their launches, and the domain's default device.
 On a host with two or more cards, the sharded NTT,
 iNTT and MSM (``parallel/``) over meshes of distinct cards against one card,
 each shard's tables on its own card, and the k=6 proof over a mesh of
@@ -623,6 +626,92 @@ def test_field_and_transform_entries_check_operands_and_count_launches(dev):
                          words, n0, _cuda.stream_ptr(big))
     with pytest.raises(RuntimeError, match="cudaError"):
         _cuda.check(rc, "stockham_axis")
+
+
+# ---------------------------------------------------------------------------
+# the last of the public surface: limb.fdbl / to_int, arith.eval_lagrange,
+# Poly's algebra and the domain's constructors, on the card's kernels
+# ---------------------------------------------------------------------------
+
+
+class _LibSpy:
+    """The kernel library, recording each C entry called and its arguments."""
+
+    def __init__(self, lib):
+        self.lib, self.calls = lib, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def call(*args):
+            self.calls.append((name, args))
+            return fn(*args)
+
+        return call
+
+
+def test_surface_on_the_card_equals_the_cpu_and_counts_launches(dev, monkeypatch):
+    from halo2_tpu_torch.ops import arith
+    from halo2_tpu_torch.poly.polynomial import LAGRANGE, Poly, Rotation
+
+    f, n = BN254_G1.scalar, 1 << 12
+    a = limb.from_ints(f, _values(f.p, 50, n), dev)
+    b = limb.from_ints(f, _values(f.p, 51, n)[::-1], dev)
+    wide = limb.from_ints(f, _values(f.p, 52, 8), dev)
+    s = wide[:, 5]  # one element of a wider array: limb stride 8
+    x, y = Poly(a, LAGRANGE), Poly(b, LAGRANGE)
+    xc, yc = Poly(a.cpu(), LAGRANGE), Poly(b.cpu(), LAGRANGE)
+    counted = (field_ops.field_add, field_ops.field_sub, mont_mul)
+
+    def launches(fn):
+        before = [k.launches for k in counted]
+        out = fn()
+        return out, [k.launches - c for k, c in zip(counted, before)]
+
+    for fn, fn_cpu, want in (
+        (lambda: limb.fdbl(f, a), lambda: limb.fdbl(f, a.cpu()), [1, 0, 0]),
+        (lambda: x.add(f, y).values, lambda: xc.add(f, yc).values, [1, 0, 0]),
+        (lambda: x.sub(f, y).values, lambda: xc.sub(f, yc).values, [0, 1, 0]),
+        (lambda: x.mul_pointwise(f, y).values, lambda: xc.mul_pointwise(f, yc).values,
+         [0, 0, 1]),
+        (lambda: x.scale(f, s).values, lambda: xc.scale(f, s.cpu()).values, [0, 0, 1]),
+    ):
+        got, counts = launches(fn)
+        assert got.is_cuda and counts == want
+        assert torch.equal(got.cpu(), fn_cpu())
+    # scale reads the scalar in place: K1's broadcast entry on its own storage
+    spy = _LibSpy(_cuda.library())
+    monkeypatch.setattr(_cuda, "library", lambda: spy)
+    x.scale(f, s)
+    assert [(name, args[1]) for name, args in spy.calls] == [("h2_mont_mul_bcast", s.data_ptr())]
+    monkeypatch.undo()
+    for rot in (Rotation.cur(), Rotation.prev(), Rotation.next()):
+        assert torch.equal(x.rotate(rot).values.cpu(), xc.rotate(rot).values)
+    assert len(x) == n
+    assert limb.to_int(f, s) == limb.to_int(f, s.cpu())
+    ev = arith.eval_lagrange(f, a, b)
+    assert ev.is_cuda and torch.equal(ev.cpu(), arith.eval_lagrange(f, a.cpu(), b.cpu()))
+
+
+def test_domain_defaults_to_the_card_and_its_constructors_equal_the_cpu(dev):
+    from halo2_tpu_torch.plonk.keygen import batch_invert_assigned
+    from halo2_tpu_torch.poly.domain import EvaluationDomain
+
+    f, k = BN254_G1.scalar, 10
+    dom, cpu = EvaluationDomain(f, 3, k), EvaluationDomain(f, 3, k, device="cpu")
+    assert dom.device.type == "cuda" and dom._tw.is_cuda
+    assert dom.pinned() == cpu.pinned()
+    for name in ("empty_lagrange", "empty_coeff", "empty_extended"):
+        got, want = getattr(dom, name)(), getattr(cpu, name)()
+        assert got.values.is_cuda and torch.equal(got.values.cpu(), want.values)
+    v = limb.from_ints(f, [7], dev)[:, 0]
+    got = dom.constant_lagrange(v)
+    assert got.values.is_cuda and got.values.stride(1) == 0
+    assert torch.equal(got.values.cpu(), cpu.constant_lagrange(v.cpu()).values)
+    a = limb.from_ints(f, _values(f.p, 53, 1 << k), dev)
+    assert dom.lagrange_from_vec(a).values is a and dom.coeff_from_vec(a).values is a
+    (col,) = batch_invert_assigned(f, [{}], 8)
+    assert col.values.is_cuda
 
 
 # ---------------------------------------------------------------------------

@@ -126,7 +126,7 @@ def test_signed_digits_recompose():
 @pytest.mark.parametrize("k", [2, 5])
 def test_domain_transforms_match_jax(k):
     jd = jdomain.EvaluationDomain(J_G1.scalar, 3, k)
-    td = EvaluationDomain(FR, 3, k)
+    td = EvaluationDomain(FR, 3, k, device="cpu")
     assert (td.extended_k, td.omega, td.extended_omega) == (jd.extended_k, jd.omega, jd.extended_omega)
     ja, ta = _both(_mont_np(_ints(k, 1 << k)))
 
