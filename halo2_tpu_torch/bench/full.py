@@ -2,7 +2,7 @@
 BenchPlonk keygen, prove and verify walls over KZG/GWC.
 
     python -m halo2_tpu_torch.bench.full [k_prove ...] [--prove-only]
-        [--no-scaling] [--out PATH] [--trace] [--reps N] [--rate-k K]
+        [--no-scaling] [--out PATH] [--reps N] [--rate-k K]
 
 Port of ``bench_full.py`` (``bench_msm``, ``bench_ntt``,
 ``bench_coset_ext``, ``bench_prove``, ``bench_scaling``, ``main``), with its
@@ -10,8 +10,7 @@ metric names.  It runs on the card and raises without one.  One JSON line per
 metric is printed, and all of them go to ``--out`` (default
 ``bench_out/BENCH_torch.json``) with ``backend`` and ``device`` (the card's
 name and power limit as ``nvidia-smi`` gives them).  Everything it writes
-lies in the directory of ``--out``: the SRS file, ``PROFILE_k{K}.txt`` and
-the trace ``trace/prove_k{K}/``.
+lies in the directory of ``--out``: the SRS file and ``PROFILE_k{K}.txt``.
 
   * ``msm_bn254_points_per_sec_k{R}``: ``ops.msm.msm`` over 2^R points s^i*G
     (``batch_scalar_mul``) with scalars t^i, R = ``--rate-k`` (16); each rate
@@ -36,12 +35,7 @@ the trace ``trace/prove_k{K}/``.
     (``parallel/``) at 2^12 over meshes of 1, 2, 4 and 8 devices, the
     visible cards in turn; fewer than 8 cards make a repeated-card proxy,
     labelled so in the line, which measures the sharding's overhead, not
-    scaling;
-  * with ``--trace``, ``prove_device_busy_share_k{K}``: one more warm prove
-    under ``utils.profiling.device_trace`` (with its kernel launches, host
-    torch ops and the kernels' time by name), written to ``trace/prove_k{K}``
-    beside ``--out``; the device time of its kernels, copies and fills over
-    its wall.
+    scaling.
 
 ``vs_baseline`` divides by the JAX bench's CPU estimates (BASELINE.md: the
 reference publishes no numbers), as that bench does.  ``HALO2_TPU_PROFILE=1``
@@ -53,7 +47,6 @@ on the CPU (the plain kernel versions) for tests.
 from __future__ import annotations
 
 import argparse
-import gzip
 import json
 import os
 import statistics
@@ -196,46 +189,7 @@ def bench_srs(k: int, out_dir: str, device):
                     emit(f"srs_read_wall_s_k{k}", read_s, "s", 0.0)]
 
 
-def device_busy(trace_path: str) -> tuple:
-    """Device time in a Chrome trace: the kernels' and the copies' and
-    fills' summed durations, in seconds; and the counts of kernel launches
-    and host torch ops, with the kernels' time and launches by name, the
-    largest first."""
-    with gzip.open(trace_path, "rt") as f:
-        events = json.load(f).get("traceEvents", [])
-    busy = {"kernel": 0.0, "gpu_memcpy": 0.0, "gpu_memset": 0.0}
-    counts = {"kernel_launches": 0, "host_ops": 0}
-    by_kernel: dict = {}
-    for ev in events:
-        if ev.get("ph") != "X":
-            continue
-        if ev.get("cat") in busy:
-            busy[ev["cat"]] += ev.get("dur", 0) * 1e-6
-        if ev.get("cat") == "kernel":
-            counts["kernel_launches"] += 1
-            t = by_kernel.setdefault(ev.get("name", "")[:80], [0.0, 0])
-            t[0] += ev.get("dur", 0) * 1e-6
-            t[1] += 1
-        elif ev.get("cat") == "cpu_op":
-            counts["host_ops"] += 1
-    counts["by_kernel"] = sorted(([name, s, c] for name, (s, c) in by_kernel.items()),
-                                 key=lambda r: -r[1])[:12]
-    return busy, counts
-
-
-def prove_busy_share(k: int, prove, out_dir: str, device) -> dict:
-    """One more ``prove()`` under ``device_trace``, written to
-    ``out_dir/trace/prove_k{k}``; its device time over its wall."""
-    logdir = os.path.join(out_dir, "trace", f"prove_k{k}")
-    with profiling.device_trace(logdir):
-        _, wall = timed(prove, device)
-    busy, counts = device_busy(os.path.join(logdir, profiling.TRACE_FILE))
-    return emit(f"prove_device_busy_share_k{k}", sum(busy.values()) / wall,
-                "fraction of the prove wall", 0.0, wall_s=wall, kernel_s=busy["kernel"],
-                memcpy_s=busy["gpu_memcpy"], memset_s=busy["gpu_memset"], **counts)
-
-
-def bench_prove(k: int, reps: int, out_dir: str, device, trace: bool = False) -> list:
+def bench_prove(k: int, reps: int, out_dir: str, device) -> list:
     """keygen, prove and verify walls of BenchPlonkCircuit at k, KZG-GWC +
     Blake2b on BN254, and the serde walls of the SRS and the proving key."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
@@ -305,8 +259,6 @@ def bench_prove(k: int, reps: int, out_dir: str, device, trace: bool = False) ->
             for name, calls, secs in rows:
                 f.write(f"{secs:8.3f}s  {calls:4d}x  {name}\n")
         profiling.print_report()
-    if trace:
-        out.append(prove_busy_share(k, prove, out_dir, device))
     return out
 
 
@@ -389,8 +341,6 @@ def main(argv=None) -> dict:
                     help="skip the MSM / NTT / coset rates and the scaling leg")
     ap.add_argument("--no-scaling", action="store_true", help="skip the scaling leg")
     ap.add_argument("--out", default=DEFAULT_OUT, help=f"results file (default {DEFAULT_OUT})")
-    ap.add_argument("--trace", action="store_true",
-                    help="trace one more warm prove per k into trace/ beside --out")
     ap.add_argument("--reps", type=int, default=5,
                     help="warm runs per wall, and per rate x 1 / 4 / 2 (default 5)")
     ap.add_argument("--rate-k", type=int, default=16, help="log2 size of the rate legs (16)")
@@ -411,7 +361,7 @@ def main(argv=None) -> dict:
         results.append(bench_ntt(args.rate_k, 4 * args.reps, device))
         results.append(bench_coset_ext(args.rate_k, 2 * args.reps, device))
     for k in args.k_prove or [14, 16]:
-        results.extend(bench_prove(k, args.reps, out_dir, device, args.trace))
+        results.extend(bench_prove(k, args.reps, out_dir, device))
     if not (args.prove_only or args.no_scaling):
         results.extend(bench_scaling(devices=scaling_devices(device)))
     payload = {

@@ -16,11 +16,14 @@ satisfiability.
 from __future__ import annotations
 
 import bisect
+import time
 from typing import Dict, List, Optional, Tuple
 
 from ..plonk.circuit import ADVICE, Column
 from ..plonk.error import NotEnoughColumnsForConstants
+from ..utils import profiling
 from .layouter import (
+    SHAPE_PHASE,
     Assignment,
     Cell,
     Layouter,
@@ -289,10 +292,14 @@ class V1FloorPlanner:
 
     @staticmethod
     def synthesize(cs: Assignment, circuit, config, constants: List[Column]):
+        timed = profiling.enabled()
+        t0 = time.perf_counter() if timed else 0.0
         measure = _MeasureLayouter()
         circuit.without_witnesses().synthesize(config, measure)
 
         regions, column_allocations = slot_in_biggest_advice_first(measure.regions)
+        if timed:  # the measuring pass and the slotting, as the single pass's shapes
+            profiling.add(SHAPE_PHASE, time.perf_counter() - t0)
         first_unassigned_row = max(
             (a.unbounded_interval_start() for a in column_allocations.values()),
             default=0,

@@ -5,17 +5,26 @@ and circuit/floor_planner/single_pass.rs (§2.16): a shape-measuring pass picks
 each region's start row (first row at which none of its columns are in use),
 then a second pass performs the real assignments against the backend's
 ``Assignment`` interface.
+
+With the phase timers on (``utils/profiling.py``), the host time of the
+shape pass and the placement, summed over a synthesis, is added to the
+report once as ``SHAPE_PHASE``; a span per region would cost more than the
+region.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..plonk.circuit import ADVICE, FIXED, INSTANCE, Challenge, Column, Selector, TableColumn
 from ..plonk.error import NotEnoughColumnsForConstants, SynthesisError
 from ..poly.polynomial import Rotation
+from ..utils import profiling
 from .value import Assigned, Value, to_assigned
+
+SHAPE_PHASE = "synthesis: region shapes"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -331,8 +340,11 @@ class SingleChipLayouter(Layouter):
         self.regions: List[int] = []
         self.columns: Dict[object, int] = {}
         self.table_columns: List[TableColumn] = []
+        # seconds of the shape passes and placements so far; None: not timed
+        self.shape_s: Optional[float] = None
 
     def assign_region(self, name, assignment):
+        t0 = None if self.shape_s is None else time.perf_counter()
         region_index = len(self.regions)
         shape = RegionShape(region_index)
         assignment(Region(shape))
@@ -343,6 +355,8 @@ class SingleChipLayouter(Layouter):
         self.regions.append(region_start)
         for column in shape.columns:
             self.columns[column] = region_start + shape.row_count
+        if t0 is not None:
+            self.shape_s += time.perf_counter() - t0
 
         self.cs.enter_region(name)
         region = SingleChipLayouterRegion(self, region_index)
@@ -419,7 +433,13 @@ class SimpleFloorPlanner:
     @staticmethod
     def synthesize(cs: Assignment, circuit, config, constants: List[Column]):
         layouter = SingleChipLayouter(cs, constants)
-        return circuit.synthesize(config, layouter)
+        if profiling.enabled():
+            layouter.shape_s = 0.0
+        try:
+            return circuit.synthesize(config, layouter)
+        finally:
+            if layouter.shape_s is not None:
+                profiling.add(SHAPE_PHASE, layouter.shape_s)
 
 
 class Circuit:

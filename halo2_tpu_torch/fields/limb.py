@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .field_ops import field_add, field_neg, field_sub, flat_operands
 from .mont_mul import mont_mul, mont_pow
 from .spec import NLIMBS, FieldSpec, int_to_limbs
@@ -69,10 +70,14 @@ def from_ints(spec: FieldSpec, vs, device=None) -> torch.Tensor:
 
 
 def to_ints(spec: FieldSpec, a: torch.Tensor) -> list:
-    """Montgomery limb array (16, ...) -> list of canonical ints (flattened)."""
-    arr = a.cpu().numpy().reshape(NLIMBS, -1)
-    rinv = pow(spec.r, -1, spec.p)
-    return [v * rinv % spec.p for v in limbs_np_to_ints(arr)]
+    """Montgomery limb array (16, ...) -> list of canonical ints (flattened).
+
+    A tensor on the card is pulled to the host, which waits for the stream:
+    each call is one ``limb: device to host`` phase."""
+    with profiling.phase("limb: device to host"):
+        arr = a.cpu().numpy().reshape(NLIMBS, -1)
+        rinv = pow(spec.r, -1, spec.p)
+        return [v * rinv % spec.p for v in limbs_np_to_ints(arr)]
 
 
 def from_canonical_ints(spec: FieldSpec, vs, device=None) -> torch.Tensor:

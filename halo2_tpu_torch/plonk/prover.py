@@ -506,9 +506,10 @@ def create_proof(params, pk: ProvingKey, circuits, instances, rng, transcript, m
     ]
 
     # --- vanishing random poly --------------------------------------------
-    random_poly = Poly(limb.from_ints(spec, [rng() for _ in range(n)], dev), COEFF)
-    random_blind = rng()
-    _write_points(params, transcript, params.commit(random_poly, random_blind))
+    with profiling.phase("vanishing: random poly"):
+        random_poly = Poly(limb.from_ints(spec, [rng() for _ in range(n)], dev), COEFF)
+        random_blind = rng()
+        _write_points(params, transcript, params.commit(random_poly, random_blind))
 
     # --- y; h(X) -----------------------------------------------------------
     y = transcript.squeeze_challenge()

@@ -114,9 +114,11 @@ class ParamsIPA:
         return from_affine_ints(self.curve, out, self.device)
 
     def _commit_many(self, polys, bases: Point, blinds) -> Point:
+        """Every commitment passes here once: one ``commit: msm`` phase."""
         stacked = torch.stack([p.values for p in polys], dim=0)  # (m, 16, n)
         assert len(blinds) == len(polys)
-        return self._with_blinds(msm_many(self.curve, stacked, bases), blinds)
+        with profiling.phase("commit: msm"):
+            return self._with_blinds(msm_many(self.curve, stacked, bases), blinds)
 
     def commit(self, poly: Poly, blind: int = 0) -> Point:
         assert poly.basis == COEFF

@@ -35,6 +35,7 @@ from ..ops import ntt as ntt_ops
 from ..ops.msm import msm_many
 from ..ops.scalar_mul import batch_scalar_mul
 from ..parallel.msm import sharded_msm_many
+from ..utils import profiling
 from .polynomial import COEFF, LAGRANGE, Poly
 
 
@@ -171,12 +172,14 @@ class ParamsKZG:
 
     def _msm_many(self, scalars, points: Point) -> Point:
         """msm_many of (m, 16, n) scalars, sharded over ``self.mesh`` where n
-        splits into slices of two or more points."""
+        splits into slices of two or more points.  Every commitment passes
+        here once: one ``commit: msm`` phase, sharded or not."""
         ndev = self.mesh.shape["shard"] if self.mesh is not None else 0
         n = scalars.shape[2]
-        if ndev > 1 and n % ndev == 0 and n // ndev >= 2:
-            return sharded_msm_many(self.curve, scalars, points, self.mesh)
-        return msm_many(self.curve, scalars, points)
+        with profiling.phase("commit: msm"):
+            if ndev > 1 and n % ndev == 0 and n // ndev >= 2:
+                return sharded_msm_many(self.curve, scalars, points, self.mesh)
+            return msm_many(self.curve, scalars, points)
 
     def _msm(self, scalars, points: Point) -> Point:
         r = self._msm_many(scalars.unsqueeze(0), points)

@@ -1,16 +1,26 @@
-"""Wall-clock phase timers for the prover hot path.
+"""Phase spans for the prover hot path.
 
-Port of the JAX package's ``utils/profiling.py``.  ``phase(name)`` accumulates
-wall time under ``name`` when ``HALO2_TPU_PROFILE=1`` (zero overhead
-otherwise).  Work on the card is asynchronous, so when CUDA is in use a phase
-calls ``torch.cuda.synchronize()`` before it reads the clock at either end:
-a phase's time is then the time its work took, not the time it took to
-enqueue it.
+Port of the JAX package's ``utils/profiling.py``.  ``phase(name)`` is one of
+three things, decided at each call:
+
+* under an active ``torch.profiler`` (``device_trace`` or any other): a
+  ``torch.profiler.record_function(name)`` range, on the profiler's clock
+  beside the card's kernels; it never synchronizes;
+* else with ``HALO2_TPU_PROFILE=1``: a timer that accumulates the block's
+  wall time under ``name`` in the report.  Work on the card is asynchronous,
+  so when CUDA is in use it calls ``torch.cuda.synchronize()`` before it
+  reads the clock at either end: a phase's time is then the time its work
+  took, not the time it took to enqueue it;
+* else (the default): nothing; no clock is read.
+
+``add(name, seconds)`` puts host time summed elsewhere into the same report,
+for work too fine-grained for a span per call; the caller reads
+``enabled()`` once and times the pieces itself.
 
 ``device_trace(logdir)`` records the enclosed block with ``torch.profiler``
 (CPU activities, and CUDA ones where a card is present) and writes it into
-``logdir`` as a gzipped Chrome trace (Perfetto opens it):
-every kernel with its device time, beside the host's operator calls.
+``logdir`` as a gzipped Chrome trace (Perfetto opens it): every kernel with
+its device time, beside the host's operator calls and the phases' spans.
 
 Usage::
 
@@ -34,6 +44,8 @@ _times: Dict[str, List[float]] = defaultdict(list)
 
 
 def enabled() -> bool:
+    """The timers' switch, read at every call: a caller may set or clear
+    ``HALO2_TPU_PROFILE`` between two proofs."""
     return os.environ.get("HALO2_TPU_PROFILE") == "1"
 
 
@@ -45,7 +57,13 @@ def _now() -> float:
 
 @contextlib.contextmanager
 def phase(name: str) -> Iterator[None]:
-    """Accumulate the (device-fenced) wall time of the block under ``name``."""
+    """A ``record_function`` range under an active profiler, else with the
+    timers on the (device-fenced) wall time of the block under ``name``,
+    else nothing."""
+    if torch._C._autograd._profiler_enabled():
+        with torch.profiler.record_function(name):
+            yield
+        return
     if not enabled():
         yield
         return
@@ -54,6 +72,12 @@ def phase(name: str) -> Iterator[None]:
         yield
     finally:
         _times[name].append(_now() - t0)
+
+
+def add(name: str, seconds: float) -> None:
+    """Add ``seconds`` of host time, summed by the caller, under ``name``:
+    no span and no ``synchronize``."""
+    _times[name].append(seconds)
 
 
 def profiled(name: str):

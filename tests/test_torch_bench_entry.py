@@ -6,15 +6,13 @@
 - ``python -m halo2_tpu_torch.bench.full`` on the CPU at k=4 (``--device
   cpu``): every metric name present with a positive value, every proof it
   made verified (it raises otherwise), and nothing written outside the
-  directory of ``--out``; the ``--trace`` leg (``prove_busy_share``) writes
-  its trace under that directory too;
+  directory of ``--out``;
 - ``entry.dryrun_full_proof`` on the CPU equals the pin
   ``tests/data/dryrun_proof_k6.hex``.
 
 Tolerance: exact.
 """
 
-import gzip
 import json
 import os
 import subprocess
@@ -32,7 +30,6 @@ from halo2_tpu.fields.spec import BN254_FR as J_FR
 from halo2_tpu.ops import ntt as jntt
 
 from halo2_tpu_torch import entry
-from halo2_tpu_torch.bench import full
 from halo2_tpu_torch.curves import point
 from halo2_tpu_torch.curves.spec import ALL_CURVES
 from halo2_tpu_torch.fields import limb
@@ -145,21 +142,6 @@ def test_bench_full_cli_on_the_cpu(tmp_path):
     assert lines["prove_wall_s_k4"]["proof_bytes"] > 0
     assert _files(tmp_path) == ["out/bench.json", "out/srs_k4.bin"]
     assert records() == before
-
-
-def test_trace_leg_writes_under_out(tmp_path):
-    # the --trace leg on a few field products: on the CPU no kernel runs, so
-    # the device-busy share is 0; the trace lands beside --out and nowhere else
-    spec, out_dir = BN254_FR, tmp_path / "out"
-    a = limb.from_ints(spec, list(range(1, 65)), "cpu")
-    line = full.prove_busy_share(4, lambda: limb.fmul(spec, a, a), str(out_dir), "cpu")
-    assert _files(tmp_path) == ["out/trace/prove_k4/trace.json.gz"]
-    assert line["metric"] == "prove_device_busy_share_k4"
-    assert line["value"] == line["kernel_s"] == 0.0 and line["wall_s"] > 0
-    assert line["kernel_launches"] == 0 and line["by_kernel"] == [] and line["host_ops"] > 0
-    with gzip.open(out_dir / "trace" / "prove_k4" / "trace.json.gz", "rt") as f:
-        events = json.load(f)["traceEvents"]
-    assert any(ev.get("cat") == "cpu_op" for ev in events)
 
 
 def test_dryrun_full_proof_equals_the_pin():
