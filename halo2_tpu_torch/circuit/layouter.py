@@ -1,15 +1,17 @@
 """Region / Layouter plumbing + the single-pass floor planner.
 
 Python rebuild of circuit.rs (Region/AssignedCell/Layouter, SURVEY.md §2.15)
-and circuit/floor_planner/single_pass.rs (§2.16): a shape-measuring pass picks
-each region's start row (first row at which none of its columns are in use),
-then a second pass performs the real assignments against the backend's
-``Assignment`` interface.
+and circuit/floor_planner/single_pass.rs (§2.16).  single_pass.rs runs each
+region's closure twice, once to measure its shape and once for real; here it
+runs once, into ``SingleChipLayouterRegion``, which measures the shape and
+records the backend calls in order.  The layouter then places the region at
+the first row at which none of its columns are in use and replays the calls
+against the backend's ``Assignment`` interface at absolute rows, so the
+backend sees the same calls, rows and values as with two runs.
 
 With the phase timers on (``utils/profiling.py``), the host time of the
-shape pass and the placement, summed over a synthesis, is added to the
-report once as ``SHAPE_PHASE``; a span per region would cost more than the
-region.
+placement, summed over a synthesis, is added to the report once as
+``SHAPE_PHASE``; a span per region would cost more than the region.
 """
 
 from __future__ import annotations
@@ -60,6 +62,16 @@ class Assignment:
 
     def query_instance(self, column: Column, row: int) -> Value:
         raise NotImplementedError
+
+    def evaluates_advice(self, column: Column) -> bool:
+        """Whether ``assign_advice`` runs its ``to`` for ``column``: the
+        single-pass layouter evaluates a ``to`` while the region's closure
+        runs, before the region is placed, and only where this says so."""
+        return True
+
+    def evaluates_fixed(self, column: Column) -> bool:
+        """Whether ``assign_fixed`` runs its ``to`` for ``column``."""
+        return True
 
     def assign_advice(self, column: Column, row: int, to: Callable[[], Value]):
         """Backends RETURN the evaluated Value when they ran ``to`` (or None
@@ -160,7 +172,9 @@ class RegionLayouterBase:
 
 
 class RegionShape(RegionLayouterBase):
-    """Measurement pass: records which columns are used and the row count."""
+    """Records which columns a region uses and its row count, and drops its
+    assignments: ``V1FloorPlanner``'s measuring pass.  ``SimpleFloorPlanner``
+    measures with its subclass ``SingleChipLayouterRegion``."""
 
     def __init__(self, region_index: int):
         self.region_index = region_index
@@ -199,24 +213,44 @@ class RegionShape(RegionLayouterBase):
         pass
 
 
-class SingleChipLayouterRegion(RegionLayouterBase):
+# the backend calls a SingleChipLayouterRegion records
+_SELECTOR, _ADVICE, _FIXED, _COPY, _INSTANCE_COPY = range(5)
+
+
+class SingleChipLayouterRegion(RegionShape):
+    """The one run of a region's closure under ``SingleChipLayouter``.
+
+    It measures the region as ``RegionShape`` does and appends each backend
+    call to ``calls``, in the closure's order, with region-relative rows;
+    ``SingleChipLayouter`` replays them once it has placed the region.  A
+    ``to`` runs here, at most once, and only where the backend evaluates the
+    column (``Assignment.evaluates_advice`` / ``evaluates_fixed``); the
+    replay hands the backend the value already computed.  Instance cells are
+    queried from the backend at once."""
+
     def __init__(self, layouter: "SingleChipLayouter", region_index: int):
+        super().__init__(region_index)
         self.layouter = layouter
-        self.region_index = region_index
+        self.calls: list = []
         self.constants: List[Tuple[Assigned, Cell]] = []
 
-    def _abs(self, offset: int) -> int:
-        return self.layouter.regions[self.region_index] + offset
-
     def enable_selector(self, selector, offset):
-        self.layouter.cs.enable_selector(selector, self._abs(offset))
+        self._see(("selector", selector.index), offset)
+        self.calls.append((_SELECTOR, selector, offset))
+
+    def _assign(self, kind, column, offset, to, evaluates: bool):
+        self._see(column, offset)
+        if evaluates:
+            value = to()
+            to = lambda: value  # noqa: E731
+        else:
+            value = Value.unknown()
+        self.calls.append((kind, column, offset, to))
+        return Cell(self.region_index, offset, column), value
 
     def assign_advice(self, column, offset, to):
-        v = self.layouter.cs.assign_advice(column, self._abs(offset), to)
-        return (
-            Cell(self.region_index, offset, column),
-            Value.unknown() if v is None else v,
-        )
+        evaluates = self.layouter.cs.evaluates_advice(column)
+        return self._assign(_ADVICE, column, offset, to, evaluates)
 
     def assign_advice_from_constant(self, column, offset, constant):
         cell, value = self.assign_advice(column, offset, lambda: Value.known(constant))
@@ -226,32 +260,21 @@ class SingleChipLayouterRegion(RegionLayouterBase):
     def assign_advice_from_instance(self, instance, row, advice, offset):
         value = self.layouter.cs.query_instance(instance, row)
         cell, _ = self.assign_advice(advice, offset, lambda: value)
-        self.layouter.cs.copy(
-            cell.column, self.layouter.regions[cell.region_index] + cell.row_offset,
-            instance, row,
-        )
+        self.calls.append((_INSTANCE_COPY, advice, offset, instance, row))
         return cell, value
 
     def instance_value(self, instance, row):
         return self.layouter.cs.query_instance(instance, row)
 
     def assign_fixed(self, column, offset, to):
-        v = self.layouter.cs.assign_fixed(column, self._abs(offset), to)
-        return (
-            Cell(self.region_index, offset, column),
-            Value.unknown() if v is None else v,
-        )
+        evaluates = self.layouter.cs.evaluates_fixed(column)
+        return self._assign(_FIXED, column, offset, to, evaluates)
 
     def constrain_constant(self, cell, constant):
         self.constants.append((to_assigned(constant), cell))
 
     def constrain_equal(self, left: Cell, right: Cell):
-        self.layouter.cs.copy(
-            left.column,
-            self.layouter.regions[left.region_index] + left.row_offset,
-            right.column,
-            self.layouter.regions[right.region_index] + right.row_offset,
-        )
+        self.calls.append((_COPY, left, right))
 
 
 class SimpleTableLayouter:
@@ -340,27 +363,29 @@ class SingleChipLayouter(Layouter):
         self.regions: List[int] = []
         self.columns: Dict[object, int] = {}
         self.table_columns: List[TableColumn] = []
-        # seconds of the shape passes and placements so far; None: not timed
+        # seconds of the placements so far; None: not timed
         self.shape_s: Optional[float] = None
+        self.closure_runs = 0
 
     def assign_region(self, name, assignment):
-        t0 = None if self.shape_s is None else time.perf_counter()
-        region_index = len(self.regions)
-        shape = RegionShape(region_index)
-        assignment(Region(shape))
+        region = SingleChipLayouterRegion(self, len(self.regions))
+        self.closure_runs += 1
+        result = assignment(Region(region))
 
+        t0 = None if self.shape_s is None else time.perf_counter()
         region_start = 0
-        for column in shape.columns:
-            region_start = max(region_start, self.columns.get(column, 0))
+        for column in region.columns:
+            start = self.columns.get(column, 0)
+            if start > region_start:
+                region_start = start
         self.regions.append(region_start)
-        for column in shape.columns:
-            self.columns[column] = region_start + shape.row_count
+        # from the set's stored hashes: no Column.__hash__ call
+        self.columns.update(dict.fromkeys(region.columns, region_start + region.row_count))
         if t0 is not None:
             self.shape_s += time.perf_counter() - t0
 
         self.cs.enter_region(name)
-        region = SingleChipLayouterRegion(self, region_index)
-        result = assignment(Region(region))
+        self._replay(region.calls, region_start)
         constants_to_assign = region.constants
         self.cs.exit_region()
 
@@ -384,6 +409,27 @@ class SingleChipLayouter(Layouter):
             self.columns[constants_column] = next_constant_row
 
         return result
+
+    def _replay(self, calls, region_start: int):
+        """Make a region's recorded backend calls, at absolute rows."""
+        cs = self.cs
+        regions = self.regions
+        for call in calls:
+            kind = call[0]
+            if kind == _ADVICE:
+                cs.assign_advice(call[1], region_start + call[2], call[3])
+            elif kind == _FIXED:
+                cs.assign_fixed(call[1], region_start + call[2], call[3])
+            elif kind == _COPY:
+                left, right = call[1], call[2]
+                cs.copy(
+                    left.column, regions[left.region_index] + left.row_offset,
+                    right.column, regions[right.region_index] + right.row_offset,
+                )
+            elif kind == _SELECTOR:
+                cs.enable_selector(call[1], region_start + call[2])
+            else:
+                cs.copy(call[1], region_start + call[2], call[3], call[4])
 
     def assign_table(self, name, assignment):
         self.cs.enter_region(name)

@@ -29,6 +29,12 @@ class _NullAssembly(Assignment):
     def query_instance(self, column, row):
         return Value.unknown()
 
+    def evaluates_advice(self, column):
+        return False
+
+    def evaluates_fixed(self, column):
+        return False
+
     def assign_advice(self, column, row, to):
         pass
 

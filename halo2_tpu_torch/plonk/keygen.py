@@ -250,8 +250,14 @@ class KeygenAssembly(Assignment):
         self._check_row(row)
         return Value.unknown()
 
+    def evaluates_advice(self, column):
+        return False  # only fixed matters during keygen
+
+    def evaluates_fixed(self, column):
+        return True
+
     def assign_advice(self, column, row, to):
-        return None  # only fixed matters during keygen
+        return None
 
     def assign_fixed(self, column, row, to):
         self._check_row(row)

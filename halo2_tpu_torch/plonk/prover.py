@@ -57,9 +57,15 @@ class WitnessCollection(Assignment):
         col = self.instances[column.index]
         return Value.known(col[row]) if row < len(col) else Value.known(0)
 
+    def evaluates_advice(self, column):
+        return self.cs.advice_column_phase[column.index] == self.current_phase
+
+    def evaluates_fixed(self, column):
+        return False
+
     def assign_advice(self, column, row, to):
         # ignore assignments for columns in a different phase
-        if self.cs.advice_column_phase[column.index] != self.current_phase:
+        if not self.evaluates_advice(column):
             return None
         if row >= self.usable_rows:
             raise NotEnoughRowsAvailable(self.k)
