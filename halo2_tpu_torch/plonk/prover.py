@@ -306,12 +306,15 @@ def _lookup_permute(arg, pk, theta, advice_values, fixed_values, instance_values
     comp_input = compress_expressions(spec, arg.input_expressions, theta, evaluate)
     comp_table = compress_expressions(spec, arg.table_expressions, theta, evaluate)
     ints = limb.to_ints(spec, torch.stack([comp_input, comp_table], dim=1))  # one pull
-    pi, pt = _permute_expression_pair(rng, ints[:n], ints[n:], n, bf)
+    with profiling.phase("lookup: host matching"):
+        pi, pt = _permute_expression_pair(rng, ints[:n], ints[n:], n, bf)
+        perm_input = limb.from_ints(spec, pi, domain.device)
+        perm_table = limb.from_ints(spec, pt, domain.device)
     return {
         "comp_input": comp_input,
         "comp_table": comp_table,
-        "perm_input": limb.from_ints(spec, pi, domain.device),
-        "perm_table": limb.from_ints(spec, pt, domain.device),
+        "perm_input": perm_input,
+        "perm_table": perm_table,
         "input_blind": rng(),
         "table_blind": rng(),  # commit_values samples the blind before committing
     }
@@ -397,25 +400,29 @@ def create_proof(params, pk: ProvingKey, circuits, instances, rng, transcript, m
     usable = n - (bf + 1)
 
     # --- instances (prover.rs:79-132) --------------------------------------
+    # On KZG the span holds the hashes and the interpolation; on IPA
+    # (query_instance) it also holds the instance columns' commitments.
     instance_singles = []
-    for inst in instances:
-        values, polys = [], []
-        for col_values in inst:
-            if len(col_values) > usable:
-                raise InstanceTooLarge()
-            if not query_instance:
-                for v in col_values:
-                    transcript.common_scalar(v % p)
-            padded = list(col_values) + [0] * (n - len(col_values))
-            lagr = Poly(limb.from_ints(spec, padded, dev), LAGRANGE)
-            values.append(lagr.values)
-            polys.append(domain.lagrange_to_coeff(lagr))
-        if query_instance and values:
-            # Blind::default() = 1; the columns' commitments are hashed back to back
-            pts = params.commit_lagrange_many([Poly(v, LAGRANGE) for v in values], [1] * len(values))
-            for aff in to_affine_ints(params.curve, pts):
-                transcript.common_point(aff)
-        instance_singles.append({"values": values, "polys": polys})
+    with profiling.phase("instance: hash + interpolate"):
+        for inst in instances:
+            values, polys = [], []
+            for col_values in inst:
+                if len(col_values) > usable:
+                    raise InstanceTooLarge()
+                if not query_instance:
+                    for v in col_values:
+                        transcript.common_scalar(v % p)
+                padded = list(col_values) + [0] * (n - len(col_values))
+                lagr = Poly(limb.from_ints(spec, padded, dev), LAGRANGE)
+                values.append(lagr.values)
+                polys.append(domain.lagrange_to_coeff(lagr))
+            if query_instance and values:
+                # Blind::default() = 1; the columns' commitments are hashed back to back
+                pts = params.commit_lagrange_many(
+                    [Poly(v, LAGRANGE) for v in values], [1] * len(values))
+                for aff in to_affine_ints(params.curve, pts):
+                    transcript.common_point(aff)
+            instance_singles.append({"values": values, "polys": polys})
 
     # --- phase loop: witness synthesis + advice commitments ----------------
     num_circuits = len(circuits)

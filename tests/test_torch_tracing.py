@@ -13,7 +13,11 @@ k=4 on the CPU, proved four ways on the same seeds:
 - under ``profiling.device_trace``: its trace file holds the same spans, one
   ``limb: device to host`` span per ``limb.to_ints`` call.
 
-The proof bytes are the same every way.  On the CPU the plain MSM and power
+The proof bytes are the same every way.  The pinned proof of the
+tests/plonk_api.rs circuit (a lookup and an instance column, two circuits in
+one proof) shows the instance block's span once and the lookup's host
+matching once per lookup and circuit, under the profiler and the timers,
+with the pinned bytes.  On the CPU the plain MSM and power
 chains are hundreds of thousands of tiny torch ops, which the profiler would
 record and export for minutes, so the profiled proofs pause its CPU
 collection inside them (``toggle_collection_dynamic``); every span opens
@@ -41,7 +45,7 @@ from halo2_tpu_torch.poly.multiopen_gwc import gwc_create_proof
 from halo2_tpu_torch.transcript import Blake2bTranscript
 from halo2_tpu_torch.utils import profiling
 
-from torch_circuits import BenchPlonkCircuit, V1Simple
+from torch_circuits import BenchPlonkCircuit, StandardPlonkCircuit, V1Simple, plonk_api_common
 
 torch.set_num_threads(1)  # tiny limb tensors: one thread is faster, and xdist runs several workers
 
@@ -242,3 +246,73 @@ def test_phase_reads_its_state_at_each_call(monkeypatch):
     assert profiling.report(reset=True) == []  # a range, not a timer
     assert "under the profiler" in {e.key for e in prof.key_averages()}
 
+
+
+# -- the instance and lookup spans, over the pinned lookup proof ---------------
+
+LOOKUP_SPANS = ("instance: hash + interpolate", "lookup: host matching")
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+@pytest.fixture(scope="module")
+def lookup_proofs(tmp_path_factory):
+    """The tests/plonk_api.rs circuit at k=5 over GWC, as
+    ``tests/data/plonk_api_gwc_k5.hex`` pins it: two circuits of one lookup
+    and one instance column each in one proof, proved under an operator's
+    ``torch.profiler`` and with the timers."""
+    from halo2_tpu_torch.utils.rng import FieldRng
+
+    k = 5
+    a, instance, table = plonk_api_common(SPEC)
+    params = ParamsKZG.setup_host(k, seed=b"plonk-api", device="cpu")
+    blank = StandardPlonkCircuit(Value.unknown(), table)
+    vk = keygen_vk(params, blank)
+    pk = keygen_pk(params, vk, blank)
+    circuit = StandardPlonkCircuit(Value.known(a), table)
+
+    def prove_pinned():
+        return create_proof(params, pk, [circuit, circuit], [[[instance]], [[instance]]],
+                            FieldRng(SPEC, b"gwc-rng"), Blake2bTranscript(BN254_G1),
+                            gwc_create_proof)
+
+    out = {"lookups": 2 * len(vk.cs.lookups)}
+    path = str(tmp_path_factory.mktemp("lookup") / "trace.json")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("HALO2_TPU_PROFILE", raising=False)
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU]) as prof:
+            mp.setattr(kzg, "msm_many", quiet(prof, kzg.msm_many))
+            mp.setattr(limb, "mont_pow", quiet(prof, limb.mont_pow))
+            out["profiled"] = prove_pinned()
+        prof.export_chrome_trace(path)
+    with open(path) as f:
+        out["names"] = annotations(json.load(f)["traceEvents"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HALO2_TPU_PROFILE", "1")
+        profiling.report(reset=True)
+        out["timed"] = prove_pinned()
+        out["report"] = {name: (calls, secs) for name, calls, secs in profiling.report(reset=True)}
+    with open(os.path.join(HERE, "data", "plonk_api_gwc_k5.hex")) as f:
+        out["pin"] = bytes.fromhex(f.read().strip())
+    return out
+
+
+def test_profiler_sees_the_instance_span_and_one_matching_per_lookup(lookup_proofs):
+    names = lookup_proofs["names"]
+    assert lookup_proofs["lookups"] == 2
+    assert names.count("instance: hash + interpolate") == 1
+    assert names.count("lookup: host matching") == lookup_proofs["lookups"]
+    assert names.count("lookup: compress + permute") == lookup_proofs["lookups"]
+
+
+def test_timers_report_the_instance_span_and_the_matching(lookup_proofs):
+    report = lookup_proofs["report"]
+    assert set(LOOKUP_SPANS) <= set(report)
+    assert report["instance: hash + interpolate"][0] == 1
+    calls, secs = report["lookup: host matching"]
+    assert calls == lookup_proofs["lookups"]
+    assert 0 < secs <= report["lookup: compress + permute"][1]
+
+
+@pytest.mark.parametrize("way", ["profiled", "timed"])
+def test_lookup_proof_bytes_equal_the_pin(lookup_proofs, way):
+    assert lookup_proofs[way] == lookup_proofs["pin"]
