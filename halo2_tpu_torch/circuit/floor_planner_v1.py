@@ -32,6 +32,7 @@ from .layouter import (
     RegionShape,
     SimpleTableLayouter,
     Table,
+    value_of,
 )
 from .value import Value
 
@@ -181,19 +182,19 @@ class _V1Region:
         self.plan.cs.enable_selector(selector, self._abs(offset))
 
     def assign_advice(self, column, offset, to):
-        v = self.plan.cs.assign_advice(column, self._abs(offset), to)
-        return Cell(self.region_index, offset, column), (
-            Value.unknown() if v is None else v
-        )
+        cs = self.plan.cs
+        value = value_of(to) if cs.evaluates_advice(column) else Value.unknown()
+        cs.assign_advice_value(column, self._abs(offset), value)
+        return Cell(self.region_index, offset, column), value
 
     def assign_advice_from_constant(self, column, offset, constant):
-        cell, value = self.assign_advice(column, offset, lambda: Value.known(constant))
+        cell, value = self.assign_advice(column, offset, constant)
         self.constrain_constant(cell, constant)
         return cell, value
 
     def assign_advice_from_instance(self, instance, row, advice, offset):
         value = self.plan.cs.query_instance(instance, row)
-        cell, _ = self.assign_advice(advice, offset, lambda: value)
+        cell, _ = self.assign_advice(advice, offset, value)
         self.plan.cs.copy(
             cell.column, self._abs(cell.row_offset), instance, row
         )
@@ -203,10 +204,10 @@ class _V1Region:
         return self.plan.cs.query_instance(instance, row)
 
     def assign_fixed(self, column, offset, to):
-        v = self.plan.cs.assign_fixed(column, self._abs(offset), to)
-        return Cell(self.region_index, offset, column), (
-            Value.unknown() if v is None else v
-        )
+        cs = self.plan.cs
+        value = value_of(to) if cs.evaluates_fixed(column) else Value.unknown()
+        cs.assign_fixed_value(column, self._abs(offset), value)
+        return Cell(self.region_index, offset, column), value
 
     def constrain_constant(self, cell, constant):
         self.plan.constants.append((constant, cell))
@@ -318,7 +319,7 @@ class V1FloorPlanner:
         if len(positions) < len(plan.constants):
             raise NotEnoughColumnsForConstants()
         for (col, row), (value, cell) in zip(positions, plan.constants):
-            cs.assign_fixed(col, row, lambda v=value: Value.known(v))
+            cs.assign_fixed_value(col, row, Value.known(value))
             cs.copy(
                 col,
                 row,

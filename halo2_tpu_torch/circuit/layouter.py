@@ -3,11 +3,20 @@
 Python rebuild of circuit.rs (Region/AssignedCell/Layouter, SURVEY.md §2.15)
 and circuit/floor_planner/single_pass.rs (§2.16).  single_pass.rs runs each
 region's closure twice, once to measure its shape and once for real; here it
-runs once, into ``SingleChipLayouterRegion``, which measures the shape and
-records the backend calls in order.  The layouter then places the region at
-the first row at which none of its columns are in use and replays the calls
-against the backend's ``Assignment`` interface at absolute rows, so the
-backend sees the same calls, rows and values as with two runs.
+runs once, into a region recorder that measures the shape and records what
+the backend keeps.  The layouter then places the region at the first row at
+which none of its columns are in use and hands the backend the recorded
+calls at absolute rows.
+
+A backend sees the calls it declares it keeps (``Assignment.keeps_layout``).
+One that keeps the layout (keygen, ``MockProver``, the cost and graph
+collectors) gets every call, in the closure's order, with the values, rows
+and regions of two runs.  One that keeps no layout (the prover's
+``WitnessCollection``) gets only the values of the advice cells it evaluates,
+written into its column store; no fixed cell, selector, copy, constant or
+table call reaches it.  Placement is the same for both.  A ``to`` runs at
+most once, while the closure runs, and only where the backend evaluates its
+column (``evaluates_advice`` / ``evaluates_fixed``).
 
 With the phase timers on (``utils/profiling.py``), the host time of the
 placement, summed over a synthesis, is added to the report once as
@@ -16,40 +25,72 @@ placement, summed over a synthesis, is added to the report once as
 
 from __future__ import annotations
 
-import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional
 
-from ..plonk.circuit import ADVICE, FIXED, INSTANCE, Challenge, Column, Selector, TableColumn
-from ..plonk.error import NotEnoughColumnsForConstants, SynthesisError
-from ..poly.polynomial import Rotation
+from ..plonk.circuit import Challenge, Column, Selector, TableColumn
+from ..plonk.error import NotEnoughColumnsForConstants, NotEnoughRowsAvailable, SynthesisError
 from ..utils import profiling
 from .value import Assigned, Value, to_assigned
 
 SHAPE_PHASE = "synthesis: region shapes"
 
 
-@dataclasses.dataclass(frozen=True)
 class Cell:
-    region_index: int
-    row_offset: int
-    column: Column
+    """A cell of a region: the region, the row within it and the column.
+    Equal and hashed by the three; never changed once made."""
+
+    __slots__ = ("region_index", "row_offset", "column")
+
+    def __init__(self, region_index: int, row_offset: int, column: Column):
+        self.region_index = region_index
+        self.row_offset = row_offset
+        self.column = column
+
+    def __eq__(self, other):
+        if other.__class__ is not Cell:
+            return NotImplemented
+        return (self.region_index == other.region_index
+                and self.row_offset == other.row_offset
+                and self.column == other.column)
+
+    def __hash__(self):
+        return hash((self.region_index, self.row_offset, self.column))
+
+    def __repr__(self):
+        return f"Cell({self.region_index}, {self.row_offset}, {self.column!r})"
 
 
-@dataclasses.dataclass
 class AssignedCell:
-    value: Value
-    cell: Cell
+    """A cell and the value assigned to it (``Value.unknown()`` where the
+    backend did not evaluate the column)."""
+
+    __slots__ = ("value", "cell")
+
+    def __init__(self, value: Value, cell: Cell):
+        self.value = value
+        self.cell = cell
 
     def copy_advice(self, region: "Region", column: Column, offset: int) -> "AssignedCell":
-        ac = region.assign_advice(column, offset, lambda: self.value)
+        ac = region.assign_advice(column, offset, self.value)
         region.constrain_equal(ac.cell, self.cell)
         return ac
+
+    def __repr__(self):
+        return f"AssignedCell({self.value!r}, {self.cell!r})"
 
 
 class Assignment:
     """Backend interface (reference plonk/circuit.rs:516-628).  Implemented by
     keygen Assembly, prover WitnessCollection, and MockProver."""
+
+    # Whether the backend consumes the layout: fixed cells, selectors,
+    # copies, constants and table fills.  ``SingleChipLayouter`` reads it once
+    # a synthesis.  A backend that says False keeps the advice values of the
+    # columns it evaluates and nothing else; it has ``k``, ``usable_rows``
+    # and ``advice``, one dict a column from row to the value as the circuit
+    # gave it (an ``int`` or an ``Assigned``), into which the layouter writes.
+    keeps_layout = True
 
     def enter_region(self, name):
         pass
@@ -79,8 +120,17 @@ class Assignment:
         can hand the value to AssignedCell without wrapper closures."""
         raise NotImplementedError
 
+    def assign_advice_value(self, column: Column, row: int, value: Value):
+        """``assign_advice`` of a value the layouter has computed already
+        (``Value.unknown()`` where ``evaluates_advice`` says no)."""
+        return self.assign_advice(column, row, lambda: value)
+
     def assign_fixed(self, column: Column, row: int, to: Callable[[], Value]):
         raise NotImplementedError
+
+    def assign_fixed_value(self, column: Column, row: int, value: Value):
+        """``assign_fixed`` of a value the layouter has computed already."""
+        return self.assign_fixed(column, row, lambda: value)
 
     def copy(self, left_column: Column, left_row: int, right_column: Column, right_row: int):
         raise NotImplementedError
@@ -104,11 +154,16 @@ class Assignment:
 
 
 class Region:
+    """The region handed to a closure.  A ``to`` is a Value, an ``int`` or
+    an ``Assigned``, or a callable that returns one; the region layouter
+    runs it, at most once, where the backend evaluates the column."""
+
+    __slots__ = ("_l",)
+
     def __init__(self, layouter: "RegionLayouterBase"):
         self._l = layouter
 
     def assign_advice(self, column: Column, offset: int, to) -> AssignedCell:
-        to = _as_value_fn(to)
         cell, value = self._l.assign_advice(column, offset, to)
         return AssignedCell(value, cell)
 
@@ -126,7 +181,6 @@ class Region:
         return self._l.instance_value(instance, row)
 
     def assign_fixed(self, column: Column, offset: int, to) -> AssignedCell:
-        to = _as_value_fn(to)
         cell, value = self._l.assign_fixed(column, offset, to)
         return AssignedCell(value, cell)
 
@@ -140,13 +194,13 @@ class Region:
         self._l.enable_selector(selector, offset)
 
 
-def _as_value_fn(to):
-    if callable(to):
-        return lambda: _coerce_value(to())
-    return lambda: _coerce_value(to)
+def value_of(to) -> Value:
+    """The Value of an assignment's ``to``: run it if it is callable, and
+    make an ``int`` or an ``Assigned`` a known Value."""
+    return _coerce(to() if callable(to) else to)
 
 
-def _coerce_value(v) -> Value:
+def _coerce(v) -> Value:
     if isinstance(v, Value):
         return v
     if isinstance(v, (int, Assigned)):
@@ -155,11 +209,13 @@ def _coerce_value(v) -> Value:
 
 
 class Table:
+    __slots__ = ("_l",)
+
     def __init__(self, layouter: "SimpleTableLayouter"):
         self._l = layouter
 
     def assign_cell(self, column: TableColumn, offset: int, to):
-        self._l.assign_cell(column, offset, _as_value_fn(to))
+        self._l.assign_cell(column, offset, to)
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +230,7 @@ class RegionLayouterBase:
 class RegionShape(RegionLayouterBase):
     """Records which columns a region uses and its row count, and drops its
     assignments: ``V1FloorPlanner``'s measuring pass.  ``SimpleFloorPlanner``
-    measures with its subclass ``SingleChipLayouterRegion``."""
+    measures with its region recorders below."""
 
     def __init__(self, region_index: int):
         self.region_index = region_index
@@ -183,7 +239,8 @@ class RegionShape(RegionLayouterBase):
 
     def _see(self, column, offset):
         self.columns.add(column)
-        self.row_count = max(self.row_count, offset + 1)
+        if offset >= self.row_count:
+            self.row_count = offset + 1
 
     def enable_selector(self, selector, offset):
         self._see(("selector", selector.index), offset)
@@ -193,7 +250,7 @@ class RegionShape(RegionLayouterBase):
         return Cell(self.region_index, offset, column), Value.unknown()
 
     def assign_advice_from_constant(self, column, offset, constant):
-        return self.assign_advice(column, offset, lambda: Value.known(constant))
+        return self.assign_advice(column, offset, constant)
 
     def assign_advice_from_instance(self, instance, row, advice, offset):
         self._see(advice, offset)
@@ -218,48 +275,39 @@ _SELECTOR, _ADVICE, _FIXED, _COPY, _INSTANCE_COPY = range(5)
 
 
 class SingleChipLayouterRegion(RegionShape):
-    """The one run of a region's closure under ``SingleChipLayouter``.
+    """The one run of a region's closure under ``SingleChipLayouter``, for
+    a backend that keeps the layout.
 
     It measures the region as ``RegionShape`` does and appends each backend
-    call to ``calls``, in the closure's order, with region-relative rows;
-    ``SingleChipLayouter`` replays them once it has placed the region.  A
-    ``to`` runs here, at most once, and only where the backend evaluates the
-    column (``Assignment.evaluates_advice`` / ``evaluates_fixed``); the
-    replay hands the backend the value already computed.  Instance cells are
-    queried from the backend at once."""
+    call to ``calls``, in the closure's order, with region-relative rows and
+    the value computed here; ``SingleChipLayouter`` hands them to the
+    backend once it has placed the region.  Instance cells are queried from
+    the backend at once."""
 
     def __init__(self, layouter: "SingleChipLayouter", region_index: int):
         super().__init__(region_index)
         self.layouter = layouter
         self.calls: list = []
-        self.constants: List[Tuple[Assigned, Cell]] = []
+        self.constants: list = []  # (Assigned, Cell)
 
     def enable_selector(self, selector, offset):
         self._see(("selector", selector.index), offset)
         self.calls.append((_SELECTOR, selector, offset))
 
-    def _assign(self, kind, column, offset, to, evaluates: bool):
+    def assign_advice(self, column, offset, to):
         self._see(column, offset)
-        if evaluates:
-            value = to()
-            to = lambda: value  # noqa: E731
-        else:
-            value = Value.unknown()
-        self.calls.append((kind, column, offset, to))
+        value = value_of(to) if self.layouter.evaluates_advice(column) else Value.unknown()
+        self.calls.append((_ADVICE, column, offset, value))
         return Cell(self.region_index, offset, column), value
 
-    def assign_advice(self, column, offset, to):
-        evaluates = self.layouter.cs.evaluates_advice(column)
-        return self._assign(_ADVICE, column, offset, to, evaluates)
-
     def assign_advice_from_constant(self, column, offset, constant):
-        cell, value = self.assign_advice(column, offset, lambda: Value.known(constant))
+        cell, value = self.assign_advice(column, offset, constant)
         self.constrain_constant(cell, constant)
         return cell, value
 
     def assign_advice_from_instance(self, instance, row, advice, offset):
         value = self.layouter.cs.query_instance(instance, row)
-        cell, _ = self.assign_advice(advice, offset, lambda: value)
+        cell, _ = self.assign_advice(advice, offset, value)
         self.calls.append((_INSTANCE_COPY, advice, offset, instance, row))
         return cell, value
 
@@ -267,34 +315,124 @@ class SingleChipLayouterRegion(RegionShape):
         return self.layouter.cs.query_instance(instance, row)
 
     def assign_fixed(self, column, offset, to):
-        evaluates = self.layouter.cs.evaluates_fixed(column)
-        return self._assign(_FIXED, column, offset, to, evaluates)
+        self._see(column, offset)
+        value = value_of(to) if self.layouter.evaluates_fixed(column) else Value.unknown()
+        self.calls.append((_FIXED, column, offset, value))
+        return Cell(self.region_index, offset, column), value
 
     def constrain_constant(self, cell, constant):
-        self.constants.append((to_assigned(constant), cell))
+        self.constants.append((constant, cell))
 
     def constrain_equal(self, left: Cell, right: Cell):
         self.calls.append((_COPY, left, right))
 
 
+class SingleChipAdviceRegion(RegionShape):
+    """The one run of a region's closure under ``SingleChipLayouter``, for
+    a backend that keeps no layout.
+
+    It measures the region as ``RegionShape`` does, and records only the
+    advice cells whose column the backend evaluates, as ``(column index,
+    offset, value)`` in ``advice``, the value as the circuit gave it (None
+    where unknown).  Every other call the backend would have had (fixed
+    cells, selectors, copies, advice of columns it does not evaluate) is
+    counted in ``left_out``, and the constants in ``num_constants``."""
+
+    def __init__(self, layouter: "SingleChipLayouter", region_index: int):
+        self.region_index = region_index
+        self.columns: set = set()
+        self.row_count = 0
+        self.layouter = layouter
+        self.advice: list = []
+        self.left_out = 0
+        self.num_constants = 0
+
+    def enable_selector(self, selector, offset):
+        self._see(("selector", selector.index), offset)
+        self.left_out += 1
+
+    def assign_advice(self, column, offset, to):
+        self.columns.add(column)
+        if offset >= self.row_count:
+            self.row_count = offset + 1
+        evaluated = self.layouter.advice_evaluated.get(column.index)
+        if evaluated is None:
+            evaluated = self.layouter.evaluates_advice(column)
+        if not evaluated:
+            self.left_out += 1
+            return Cell(self.region_index, offset, column), Value.unknown()
+        value = to() if callable(to) else to
+        if value.__class__ is not Value:
+            value = _coerce(value)
+        v = value._inner
+        if v is not None and v.__class__ is not int and v.__class__ is not Assigned:
+            to_assigned(v)  # the TypeError of a value that is neither
+        self.advice.append((column.index, offset, v))
+        return Cell(self.region_index, offset, column), value
+
+    def assign_advice_from_constant(self, column, offset, constant):
+        cell, value = self.assign_advice(column, offset, constant)
+        self.num_constants += 1
+        return cell, value
+
+    def assign_advice_from_instance(self, instance, row, advice, offset):
+        value = self.layouter.cs.query_instance(instance, row)
+        cell, _ = self.assign_advice(advice, offset, value)
+        self.left_out += 1
+        return cell, value
+
+    def instance_value(self, instance, row):
+        return self.layouter.cs.query_instance(instance, row)
+
+    def assign_fixed(self, column, offset, to):
+        self.columns.add(column)
+        if offset >= self.row_count:
+            self.row_count = offset + 1
+        self.left_out += 1
+        return Cell(self.region_index, offset, column), Value.unknown()
+
+    def constrain_constant(self, cell, constant):
+        self.num_constants += 1
+
+    def constrain_equal(self, left: Cell, right: Cell):
+        self.left_out += 1
+
+
 class SimpleTableLayouter:
-    def __init__(self, cs: Assignment, used_columns):
+    """A table's cells.  ``cs`` None: the backend keeps no layout, and only
+    the table's shape is kept, for the checks of ``assign_table``."""
+
+    def __init__(self, cs: Optional[Assignment], used_columns):
         self.cs = cs
         self.used_columns = used_columns
         # column -> (default value Value | None, [assigned flags])
         self.default_and_assigned: Dict[TableColumn, list] = {}
+        self.cells = 0  # assign_cell calls
+        # id(column) -> (column, its entry): a TableColumn hashes in Python,
+        # and a table assigns a cell of each column a row
+        self._entries: Dict[int, tuple] = {}
 
     def assign_cell(self, column: TableColumn, offset: int, to):
-        if column in self.used_columns:
-            raise SynthesisError("table column already used")
-        entry = self.default_and_assigned.setdefault(column, [None, []])
+        known = self._entries.get(id(column))
+        if known is not None and known[0] is column:
+            entry = known[1]
+        else:
+            if column in self.used_columns:
+                raise SynthesisError("table column already used")
+            entry = self.default_and_assigned.setdefault(column, [None, []])
+            self._entries[id(column)] = (column, entry)
+        self.cells += 1
 
-        v = self.cs.assign_fixed(column.inner, offset, to)
+        cs = self.cs
+        v = None
+        if cs is not None:
+            value = value_of(to) if cs.evaluates_fixed(column.inner) else Value.unknown()
+            v = cs.assign_fixed_value(column.inner, offset, value)
         if offset == 0:
             if entry[0] is None:
                 # The default is SET even when the backend never ran the
-                # closure (prover WitnessCollection ignores fixed
-                # assignments): mirror single_pass.rs DefaultTableValue =
+                # closure (the prover's WitnessCollection keeps no fixed
+                # cells): mirror single_pass.rs DefaultTableValue =
                 # Some(Value::unknown()) in that case.
                 entry[0] = Value.unknown() if v is None else v
             else:
@@ -365,10 +503,34 @@ class SingleChipLayouter(Layouter):
         self.table_columns: List[TableColumn] = []
         # seconds of the placements so far; None: not timed
         self.shape_s: Optional[float] = None
+        # what the backend keeps, asked once a synthesis (a column's
+        # evaluates_* once, by its index)
+        self.keeps_layout = cs.keeps_layout
+        self.advice_evaluated: Dict[int, bool] = {}
+        self.fixed_evaluated: Dict[int, bool] = {}
+        # closures run; backend calls made (an advice value written to a
+        # store counts as one), and calls left out because the backend
+        # keeps no layout
         self.closure_runs = 0
+        self.calls_handed = 0
+        self.calls_left_out = 0
+
+    def evaluates_advice(self, column: Column) -> bool:
+        evaluated = self.advice_evaluated.get(column.index)
+        if evaluated is None:
+            evaluated = self.advice_evaluated[column.index] = bool(self.cs.evaluates_advice(column))
+        return evaluated
+
+    def evaluates_fixed(self, column: Column) -> bool:
+        evaluated = self.fixed_evaluated.get(column.index)
+        if evaluated is None:
+            evaluated = self.fixed_evaluated[column.index] = bool(self.cs.evaluates_fixed(column))
+        return evaluated
 
     def assign_region(self, name, assignment):
-        region = SingleChipLayouterRegion(self, len(self.regions))
+        keeps_layout = self.keeps_layout
+        recorder = SingleChipLayouterRegion if keeps_layout else SingleChipAdviceRegion
+        region = recorder(self, len(self.regions))
         self.closure_runs += 1
         result = assignment(Region(region))
 
@@ -384,28 +546,37 @@ class SingleChipLayouter(Layouter):
         if t0 is not None:
             self.shape_s += time.perf_counter() - t0
 
-        self.cs.enter_region(name)
-        self._replay(region.calls, region_start)
-        constants_to_assign = region.constants
-        self.cs.exit_region()
-
-        if not self.constants:
-            if constants_to_assign:
-                raise NotEnoughColumnsForConstants()
+        if keeps_layout:
+            self.cs.enter_region(name)
+            self._replay(region.calls, region_start)
+            self.cs.exit_region()
+            num_constants = len(region.constants)
         else:
+            self._write_advice(region, region_start)
+            self.calls_left_out += region.left_out
+            num_constants = region.num_constants
+
+        if num_constants:
+            if not self.constants:
+                raise NotEnoughColumnsForConstants()
             constants_column = self.constants[0]
             next_constant_row = self.columns.get(constants_column, 0)
-            for constant, advice in constants_to_assign:
-                self.cs.assign_fixed(
-                    constants_column, next_constant_row, lambda: Value.known(constant)
-                )
-                self.cs.copy(
-                    constants_column,
-                    next_constant_row,
-                    advice.column,
-                    self.regions[advice.region_index] + advice.row_offset,
-                )
-                next_constant_row += 1
+            if keeps_layout:
+                for constant, advice in region.constants:
+                    self.cs.assign_fixed_value(
+                        constants_column, next_constant_row, Value.known(constant)
+                    )
+                    self.cs.copy(
+                        constants_column,
+                        next_constant_row,
+                        advice.column,
+                        self.regions[advice.region_index] + advice.row_offset,
+                    )
+                    next_constant_row += 1
+                self.calls_handed += 2 * num_constants
+            else:
+                next_constant_row += num_constants
+                self.calls_left_out += 2 * num_constants
             self.columns[constants_column] = next_constant_row
 
         return result
@@ -417,9 +588,9 @@ class SingleChipLayouter(Layouter):
         for call in calls:
             kind = call[0]
             if kind == _ADVICE:
-                cs.assign_advice(call[1], region_start + call[2], call[3])
+                cs.assign_advice_value(call[1], region_start + call[2], call[3])
             elif kind == _FIXED:
-                cs.assign_fixed(call[1], region_start + call[2], call[3])
+                cs.assign_fixed_value(call[1], region_start + call[2], call[3])
             elif kind == _COPY:
                 left, right = call[1], call[2]
                 cs.copy(
@@ -430,13 +601,33 @@ class SingleChipLayouter(Layouter):
                 cs.enable_selector(call[1], region_start + call[2])
             else:
                 cs.copy(call[1], region_start + call[2], call[3], call[4])
+        self.calls_handed += len(calls)
+
+    def _write_advice(self, region: SingleChipAdviceRegion, region_start: int):
+        """Write a region's recorded advice values into the backend's
+        store, at absolute rows; an unknown value is checked but not
+        stored."""
+        cs = self.cs
+        advice = region.advice
+        if region_start + region.row_count > cs.usable_rows:
+            for _, offset, _ in advice:
+                if region_start + offset >= cs.usable_rows:
+                    raise NotEnoughRowsAvailable(cs.k)
+        store = cs.advice
+        for index, offset, v in advice:
+            if v is not None:
+                store[index][region_start + offset] = v
+        self.calls_handed += len(advice)
 
     def assign_table(self, name, assignment):
-        self.cs.enter_region(name)
-        table = SimpleTableLayouter(self.cs, self.table_columns)
+        keeps_layout = self.keeps_layout
+        if keeps_layout:
+            self.cs.enter_region(name)
+        table = SimpleTableLayouter(self.cs if keeps_layout else None, self.table_columns)
         assignment(Table(table))
         daa = table.default_and_assigned
-        self.cs.exit_region()
+        if keeps_layout:
+            self.cs.exit_region()
 
         lengths = set()
         for default, flags in daa.values():
@@ -452,15 +643,24 @@ class SingleChipLayouter(Layouter):
         for column, (default, flags) in daa.items():
             if default is None:
                 raise SynthesisError("table column missing default value")
-            self.cs.fill_from_row(column.inner, first_unused, default)
+            if keeps_layout:
+                self.cs.fill_from_row(column.inner, first_unused, default)
+        if keeps_layout:
+            self.calls_handed += table.cells + len(daa)
+        else:
+            self.calls_left_out += table.cells + len(daa)
 
     def constrain_instance(self, cell: Cell, instance: Column, row: int):
+        if not self.keeps_layout:
+            self.calls_left_out += 1
+            return
         self.cs.copy(
             cell.column,
             self.regions[cell.region_index] + cell.row_offset,
             instance,
             row,
         )
+        self.calls_handed += 1
 
     def get_challenge(self, challenge):
         return self.cs.get_challenge(challenge)

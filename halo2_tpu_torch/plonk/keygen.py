@@ -281,8 +281,9 @@ class KeygenAssembly(Assignment):
 
 def batch_invert_assigned(spec: FieldSpec, columns: List[dict], n: int,
                           device="cuda") -> List[Poly]:
-    """Materialize Assigned columns: num * den^-1, batched on the device
-    (reference poly.rs:180-209)."""
+    """Materialize columns of ``{row: value}``, each value an ``int`` (over
+    1) or an ``Assigned``: num * den^-1, batched on the device (reference
+    poly.rs:180-209)."""
     device = torch.device(device)  # None raises, as in EvaluationDomain: no silent CPU
     if not columns:
         return []
@@ -293,10 +294,13 @@ def batch_invert_assigned(spec: FieldSpec, columns: List[dict], n: int,
         cn = [0] * n
         cd = [1] * n
         for row, a in col.items():
-            cn[row] = a.numerator % p
-            if a.denominator != 1:
-                all_trivial = False
-                cd[row] = a.denominator % p
+            if isinstance(a, Assigned):
+                cn[row] = a.numerator % p
+                if a.denominator != 1:
+                    all_trivial = False
+                    cd[row] = a.denominator % p
+            else:
+                cn[row] = a % p
         nums.extend(cn)
         dens.extend(cd)
     vals = limb.from_canonical_ints(spec, nums, device)

@@ -22,7 +22,7 @@ from typing import Dict, List
 import torch
 
 from ..circuit.layouter import Assignment
-from ..circuit.value import Value, to_assigned
+from ..circuit.value import Assigned, Value, to_assigned
 from ..curves.point import to_affine_ints
 from ..fields import limb
 from ..fields.spec import NLIMBS, FieldSpec
@@ -42,6 +42,14 @@ from .keygen import ProvingKey, batch_invert_assigned
 
 
 class WitnessCollection(Assignment):
+    """The prover's witness: the advice values of the current phase, as the
+    circuit gave them (``int`` or ``Assigned``), in ``advice``, one dict a
+    column from row to value.  It keeps no layout, so ``SimpleFloorPlanner``
+    writes those values straight into ``advice`` and makes no other call;
+    the methods below serve ``V1FloorPlanner``, which makes every call."""
+
+    keeps_layout = False
+
     def __init__(self, k, cs: ConstraintSystem, current_phase, instances, challenges, usable_rows):
         self.k = k
         self.cs = cs
@@ -69,10 +77,13 @@ class WitnessCollection(Assignment):
             return None
         if row >= self.usable_rows:
             raise NotEnoughRowsAvailable(self.k)
-        v = to()
-        if not v.is_none():
-            self.advice[column.index][row] = to_assigned(v.value())
-        return v
+        value = to()
+        v = value.value()
+        if v is not None:
+            if not isinstance(v, (int, Assigned)):
+                to_assigned(v)  # the TypeError of a value that is neither
+            self.advice[column.index][row] = v
+        return value
 
     def assign_fixed(self, column, row, to):
         pass

@@ -1,22 +1,30 @@
 """``SimpleFloorPlanner`` runs each region's closure once.
 
-``SingleChipLayouter`` runs a closure into ``SingleChipLayouterRegion``,
-which measures the region and records its backend calls; the layouter then
-places the region and replays the calls.  Over the three backends the
-planner drives (the prover's ``WitnessCollection`` in both phases, keygen's
-``KeygenAssembly`` and ``MockProver``), on a small circuit with regions of
-four shapes, selectors, a constant, instance copies and a second-phase
-column that reads a challenge:
+``SingleChipLayouter`` runs a closure into a region recorder, which measures
+the region and records what the backend keeps; the layouter then places the
+region and hands the backend the recorded calls.  A backend states whether
+it keeps the layout (``Assignment.keeps_layout``).  Over the three backends
+the planner drives (the prover's ``WitnessCollection`` in both phases, which
+keeps no layout, keygen's ``KeygenAssembly`` and ``MockProver``), on a small
+circuit with a table, regions of four shapes, selectors, a constant,
+instance copies and a second-phase column that reads a challenge:
 
 - each closure runs once, and the layouter's ``closure_runs`` equals its
   number of regions;
 - a ``to`` runs once where the backend evaluates its column, and never
   where the backend skips it;
-- the region starts and every backend call (regions, selectors, advice and
-  fixed cells with their values, copies), in order, equal those of the JAX
-  package's ``SimpleFloorPlanner`` on the same circuit, as do the backends'
-  own records;
-- a region past the usable rows still raises ``NotEnoughRowsAvailable``.
+- the region starts equal those of the JAX package's ``SimpleFloorPlanner``
+  on the same circuit, as do the backends' own records; for keygen and
+  ``MockProver`` so does every backend call (regions, selectors, advice and
+  fixed cells with their values, copies, table fills), in order; the
+  witness gets only its phase's advice values, written into its store, in
+  the order, rows and values of the JAX run's advice calls, and no other
+  call;
+- the layouter's counters of the calls it hands the backend and of those it
+  leaves out, here and for BenchPlonk;
+- a region past the usable rows still raises ``NotEnoughRowsAvailable``, and
+  a witness value that is neither an ``int`` nor an ``Assigned`` raises
+  ``to_assigned``'s ``TypeError``.
 """
 
 import collections
@@ -50,6 +58,7 @@ def frontend(pkg: str) -> types.SimpleNamespace:
         Rotation=mod("poly.polynomial").Rotation,
         WitnessCollection=mod("plonk.prover").WitnessCollection,
         KeygenAssembly=mod("plonk.keygen").KeygenAssembly,
+        SimpleFloorPlanner=layouter.SimpleFloorPlanner,
         MockProver=mod("dev.mock_prover").MockProver,
         NotEnoughRowsAvailable=mod("plonk.error").NotEnoughRowsAvailable,
         spec=mod("fields.spec").BN254_FR,
@@ -61,8 +70,9 @@ PORT = frontend("halo2_tpu_torch")
 
 def layout_circuit(fe):
     """A circuit of four regions of different shapes, written against
-    ``fe``'s frontend.  It counts its closure runs and, by column name, the
-    runs of the ``to`` of each advice and fixed cell it assigns."""
+    ``fe``'s frontend, and a table of four rows.  It counts its closure
+    runs and, by column name, the runs of the ``to`` of each advice, fixed
+    and table cell it assigns."""
 
     class LayoutCircuit(fe.Circuit):
         def __init__(self, x, height: int = 3):
@@ -97,8 +107,10 @@ def layout_circuit(fe):
 
             meta.create_gate("mul", mul)
             meta.create_gate("second phase", second)
+            t = meta.lookup_table_column()
+            meta.lookup("b in t", lambda c: [(c.query_advice(b, cur), t)])
             return {"a": a, "b": b, "z": z, "f": f, "inst": inst,
-                    "q_mul": q_mul, "q_z": q_z, "ch": ch}
+                    "q_mul": q_mul, "q_z": q_z, "ch": ch, "t": t}
 
         def synthesize(self, config, layouter):
             p = fe.spec.p
@@ -143,6 +155,11 @@ def layout_circuit(fe):
                 region.assign_fixed(config["f"], 0, to("f", fe.Value.known(8)))
                 return region.assign_advice(config["b"], 0, to("b", fe.Value.known(11)))
 
+            def table(tbl):  # four rows of t
+                for i in range(4):
+                    tbl.assign_cell(config["t"], i, to("t", fe.Value.known(30 + i)))
+
+            layouter.assign_table("table", table)
             y = layouter.assign_region("load", counted(load))
             last = layouter.assign_region("second phase", counted(second_phase))
             layouter.assign_region("fixed only", counted(fixed_only))
@@ -158,18 +175,36 @@ def _column(col):
 
 def logged(fe, cls):
     """``cls`` with a log of every backend call the layouter makes, in order,
-    with the values the backend returns; instance queries are not logged."""
+    with the values the backend returns, and, where the backend has a store
+    of advice dicts (``WitnessCollection``), a log of the writes into it;
+    instance queries are not logged."""
+
+    def stored(v):
+        a = fe.to_assigned(v)
+        return (a.numerator % fe.spec.p, a.denominator % fe.spec.p)
 
     def norm(v):
         if v is None or v.is_none():
             return v if v is None else "unknown"
-        a = fe.to_assigned(v.value())
-        return (a.numerator % fe.spec.p, a.denominator % fe.spec.p)
+        return stored(v.value())
+
+    class Store(dict):
+        def __init__(self, index, writes):
+            super().__init__()
+            self.index, self.writes = index, writes
+
+        def __setitem__(self, row, v):
+            self.writes.append((self.index, row, stored(v)))
+            super().__setitem__(row, v)
 
     class Logged(cls):
         def __init__(self, *args):
             super().__init__(*args)
             self.log = []
+            self.writes = []
+            if isinstance(getattr(self, "advice", None), list) and all(
+                    isinstance(col, dict) for col in self.advice):
+                self.advice = [Store(i, self.writes) for i in range(len(self.advice))]
 
         def enter_region(self, name):
             self.log.append(("enter", str(name)))
@@ -198,14 +233,18 @@ def logged(fe, cls):
                              _column(right_column), right_row))
             return super().copy(left_column, left_row, right_column, right_row)
 
+        def fill_from_row(self, column, row, to):
+            self.log.append(("fill", _column(column), row, norm(to)))
+            return super().fill_from_row(column, row, to)
+
     return Logged
 
 
-def setup(fe, backend: str, height: int = 3):
+def setup(fe, backend: str, height: int = 3, x=INSTANCE_X):
     """(circuit, config, constants, the backends to synthesize into in turn):
     ``WitnessCollection`` gives one per phase, the second with the challenge
-    squeezed."""
-    circuit = layout_circuit(fe)(fe.Value.known(INSTANCE_X), height)
+    squeezed.  ``x`` is the circuit's witness of the instance's first cell."""
+    circuit = layout_circuit(fe)(fe.Value.known(x), height)
     cs = fe.ConstraintSystem()
     config = type(circuit).configure(cs)
     n = 1 << K
@@ -235,7 +274,9 @@ def synthesize(fe, circuit, config, constants, target):
 
 
 def records(backend: str, target) -> dict:
-    """What each backend keeps of the synthesis, columns by kind and index."""
+    """What each backend keeps of the synthesis, columns by kind and index
+    (the port's witness keeps an ``int`` where the JAX package's keeps an
+    ``Assigned`` over 1: an ``int``'s numerator is itself, over 1)."""
     if backend == "witness":
         return {"advice": [sorted((r, (a.numerator, a.denominator)) for r, a in col.items())
                            for col in target.advice]}
@@ -263,11 +304,11 @@ def test_each_region_closure_runs_once(backend):
 
 
 # ``to`` runs by column over the synthesis into each backend in turn: the
-# circuit assigns a 3 cells, b 2, f 4 and z 3
+# circuit assigns a 3 cells, b 2, f 4, z 3 and the table t 4
 EXPECTED_TO_RUNS = {
-    "witness": [{"a": 3, "b": 2}, {"z": 3}],  # this phase's advice; no fixed
-    "keygen": [{"f": 4}],  # fixed alone
-    "mock": [{"a": 3, "b": 2, "f": 4, "z": 3}],  # everything
+    "witness": [{"a": 3, "b": 2}, {"z": 3}],  # this phase's advice; no fixed, no table
+    "keygen": [{"f": 4, "t": 4}],  # fixed alone
+    "mock": [{"a": 3, "b": 2, "f": 4, "z": 3, "t": 4}],  # everything
 }
 
 
@@ -282,6 +323,13 @@ def test_to_runs_once_where_the_backend_evaluates_and_never_elsewhere(backend):
     assert runs == EXPECTED_TO_RUNS[backend]
 
 
+def advice_calls(log) -> list:
+    """(column index, row, value) of each advice call in ``log`` whose
+    backend kept a value."""
+    return [(entry[1][1], entry[2], entry[3]) for entry in log
+            if entry[0] == "advice" and entry[3] not in (None, "unknown")]
+
+
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_layout_and_backend_calls_equal_the_jax_packages(backend):
     jax = frontend("halo2_tpu")
@@ -289,17 +337,89 @@ def test_layout_and_backend_calls_equal_the_jax_packages(backend):
     for fe in (PORT, jax):
         circuit, config, constants, targets = setup(fe, backend)
         got[fe.pkg] = [
-            (synthesize(fe, circuit, config, constants, t).regions, t.log, records(backend, t))
+            (synthesize(fe, circuit, config, constants, t).regions, t.log, t.writes,
+             records(backend, t))
             for t in targets
         ]
     port, ref = got["halo2_tpu_torch"], got["halo2_tpu"]
     # the layout itself: fixed starts, not only agreement
-    assert [regions for regions, _, _ in port] == [[0, 2, 2, 4]] * len(port)
+    assert [regions for regions, _, _, _ in port] == [[0, 2, 2, 4]] * len(port)
+    if backend == "witness":
+        # no call reaches the witness: its phase's advice values are written
+        # into its store, in the order, rows and values of the JAX run's
+        # advice calls, and it keeps what the JAX run's witness keeps
+        assert [log for _, log, _, _ in port] == [[], []]
+        assert [writes for _, _, writes, _ in port] == [advice_calls(log) for _, log, _, _ in ref]
+        assert [writes for _, _, writes, _ in port] == [writes for _, _, writes, _ in ref]
+        assert [(regions, rec) for regions, _, _, rec in port] == [
+            (regions, rec) for regions, _, _, rec in ref]
+        assert [len(writes) for _, _, writes, _ in port] == [7, 3]
+        return
     assert port == ref
     # the synthesis reached every kind of call
-    kinds = {entry[0] for _, log, _ in port for entry in log}
-    assert {"enter", "exit", "advice", "fixed", "copy"} <= kinds
-    assert backend == "witness" or "selector" in kinds
+    kinds = {entry[0] for _, log, _, _ in port for entry in log}
+    assert {"enter", "exit", "advice", "fixed", "copy", "selector", "fill"} <= kinds
+
+
+def test_witness_collection_receives_no_layout_call():
+    """The witness's store gets its phase's advice, and no fixed cell,
+    selector, copy, constant, table cell or fill reaches it."""
+    circuit, config, constants, targets = setup(PORT, "witness")
+    for target in targets:
+        layouter = synthesize(PORT, circuit, config, constants, target)
+        assert not layouter.keeps_layout
+        assert target.log == []
+        assert target.writes
+        # the constants column and the table's column stay empty: nothing of
+        # them was handed over, and the witness has no fixed store
+        assert not hasattr(target, "fixed")
+
+
+# (calls handed to the backend, calls left out) of each synthesis: the
+# circuit makes 28 calls in all, 5 for the table (4 cells and a fill), 8
+# in "load" (constant: a fixed cell and a copy), 10 in "second phase", 2 in
+# "fixed only", 2 in "after fixed" and the instance copy; the witness gets
+# the 7 first-phase advice cells in phase 0 and the 3 z cells in phase 1
+EXPECTED_CALLS = {
+    "witness": [(7, 21), (3, 25)],
+    "keygen": [(28, 0)],
+    "mock": [(28, 0)],
+}
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_layouter_counts_the_calls_it_hands_and_leaves_out(backend):
+    circuit, config, constants, targets = setup(PORT, backend)
+    counts = []
+    for target in targets:
+        layouter = synthesize(PORT, circuit, config, constants, target)
+        counts.append((layouter.calls_handed, layouter.calls_left_out))
+    assert counts == EXPECTED_CALLS[backend]
+
+
+@pytest.mark.parametrize("backend", ["witness", "keygen"])
+def test_layouter_counts_for_benchplonk(backend):
+    """BenchPlonk at k=5: 13 iterations of two regions of 3 advice and 4
+    fixed cells, and two copies: 78 advice cells, 104 fixed cells and 26
+    copies.  The witness gets the advice and leaves the rest out; keygen
+    gets all 208 calls."""
+    from torch_circuits import BenchPlonkCircuit
+
+    k = 5
+    circuit = BenchPlonkCircuit(k, PORT.Value.known(5))
+    cs = PORT.ConstraintSystem()
+    config = BenchPlonkCircuit.configure(cs)
+    if backend == "witness":
+        target = PORT.WitnessCollection(k, cs, 0, [], {}, (1 << k) - (cs.blinding_factors() + 1))
+    else:
+        target = PORT.KeygenAssembly(k, cs, 1 << k)
+        circuit = circuit.without_witnesses()
+    layouter = synthesize(PORT, circuit, config, list(cs.constants), target)
+    assert layouter.closure_runs == 52
+    expected = (78, 130) if backend == "witness" else (208, 0)
+    assert (layouter.calls_handed, layouter.calls_left_out) == expected
+    if backend == "witness":
+        assert sum(len(col) for col in target.advice) == 78
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
@@ -312,3 +432,12 @@ def test_a_region_past_the_usable_rows_raises(backend):
     for target in targets:
         with pytest.raises(PORT.NotEnoughRowsAvailable):
             PORT.Circuit.floor_planner.synthesize(target, circuit, config, constants)
+
+
+def test_a_witness_value_neither_int_nor_assigned_raises():
+    """A float where the circuit should give an ``int`` or an ``Assigned``
+    raises ``to_assigned``'s ``TypeError`` on the path that keeps no
+    layout, as the backend's own ``assign_advice`` does."""
+    circuit, config, constants, targets = setup(PORT, "witness", x=1.5)
+    with pytest.raises(TypeError, match="cannot convert <class 'float'> to Assigned"):
+        PORT.SimpleFloorPlanner.synthesize(targets[0], circuit, config, constants)
