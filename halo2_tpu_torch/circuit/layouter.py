@@ -12,11 +12,12 @@ A backend sees the calls it declares it keeps (``Assignment.keeps_layout``).
 One that keeps the layout (keygen, ``MockProver``, the cost and graph
 collectors) gets every call, in the closure's order, with the values, rows
 and regions of two runs.  One that keeps no layout (the prover's
-``WitnessCollection``) gets only the values of the advice cells it evaluates,
-written into its column store; no fixed cell, selector, copy, constant or
-table call reaches it.  Placement is the same for both.  A ``to`` runs at
-most once, while the closure runs, and only where the backend evaluates its
-column (``evaluates_advice`` / ``evaluates_fixed``).
+``WitnessCollection``) gets one ``store_advice`` call a region, with the
+values of the advice cells it evaluates, and owns their store: the
+layouter neither reads nor writes it.  No fixed cell, selector, copy,
+constant or table call reaches it.  Placement is the same for both.  A
+``to`` runs at most once, while the closure runs, and only where the
+backend evaluates its column (``evaluates_advice`` / ``evaluates_fixed``).
 
 With the phase timers on (``utils/profiling.py``), the host time of the
 placement, summed over a synthesis, is added to the report once as
@@ -29,7 +30,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from ..plonk.circuit import Challenge, Column, Selector, TableColumn
-from ..plonk.error import NotEnoughColumnsForConstants, NotEnoughRowsAvailable, SynthesisError
+from ..plonk.error import NotEnoughColumnsForConstants, SynthesisError
 from ..utils import profiling
 from .value import Assigned, Value, to_assigned
 
@@ -87,9 +88,8 @@ class Assignment:
     # Whether the backend consumes the layout: fixed cells, selectors,
     # copies, constants and table fills.  ``SingleChipLayouter`` reads it once
     # a synthesis.  A backend that says False keeps the advice values of the
-    # columns it evaluates and nothing else; it has ``k``, ``usable_rows``
-    # and ``advice``, one dict a column from row to the value as the circuit
-    # gave it (an ``int`` or an ``Assigned``), into which the layouter writes.
+    # columns it evaluates and nothing else: ``SimpleFloorPlanner`` hands them
+    # over through ``store_advice`` alone.
     keeps_layout = True
 
     def enter_region(self, name):
@@ -118,6 +118,18 @@ class Assignment:
         """Backends RETURN the evaluated Value when they ran ``to`` (or None
         when they skipped it, e.g. phase filtering / keygen) so region layers
         can hand the value to AssignedCell without wrapper closures."""
+        raise NotImplementedError
+
+    def store_advice(self, region_start: int, region_end: int, records):
+        """Keep a placed region's advice values: the call through which a
+        backend that keeps no layout receives them, once a region.
+        ``records`` are ``(column index, offset, value)``, the offset from
+        ``region_start`` and the value as the circuit gave it (an ``int``, an
+        ``Assigned``, or None where unknown), for the columns that
+        ``evaluates_advice`` accepts; the region's rows end before
+        ``region_end``.  The backend checks the rows and the values, and
+        raises ``NotEnoughRowsAvailable`` or ``to_assigned``'s ``TypeError``
+        as its ``assign_advice`` would."""
         raise NotImplementedError
 
     def assign_advice_value(self, column: Column, row: int, value: Value):
@@ -332,11 +344,10 @@ class SingleChipAdviceRegion(RegionShape):
     a backend that keeps no layout.
 
     It measures the region as ``RegionShape`` does, and records only the
-    advice cells whose column the backend evaluates, as ``(column index,
-    offset, value)`` in ``advice``, the value as the circuit gave it (None
-    where unknown).  Every other call the backend would have had (fixed
-    cells, selectors, copies, advice of columns it does not evaluate) is
-    counted in ``left_out``, and the constants in ``num_constants``."""
+    advice cells whose column the backend evaluates, as the ``records`` of
+    ``Assignment.store_advice`` in ``advice``; the store checks them.  Of the
+    constants it keeps their number, ``num_constants``, which places the
+    constants column's rows."""
 
     def __init__(self, layouter: "SingleChipLayouter", region_index: int):
         self.region_index = region_index
@@ -344,12 +355,7 @@ class SingleChipAdviceRegion(RegionShape):
         self.row_count = 0
         self.layouter = layouter
         self.advice: list = []
-        self.left_out = 0
         self.num_constants = 0
-
-    def enable_selector(self, selector, offset):
-        self._see(("selector", selector.index), offset)
-        self.left_out += 1
 
     def assign_advice(self, column, offset, to):
         self.columns.add(column)
@@ -359,15 +365,11 @@ class SingleChipAdviceRegion(RegionShape):
         if evaluated is None:
             evaluated = self.layouter.evaluates_advice(column)
         if not evaluated:
-            self.left_out += 1
             return Cell(self.region_index, offset, column), Value.unknown()
         value = to() if callable(to) else to
         if value.__class__ is not Value:
             value = _coerce(value)
-        v = value._inner
-        if v is not None and v.__class__ is not int and v.__class__ is not Assigned:
-            to_assigned(v)  # the TypeError of a value that is neither
-        self.advice.append((column.index, offset, v))
+        self.advice.append((column.index, offset, value._inner))
         return Cell(self.region_index, offset, column), value
 
     def assign_advice_from_constant(self, column, offset, constant):
@@ -378,7 +380,6 @@ class SingleChipAdviceRegion(RegionShape):
     def assign_advice_from_instance(self, instance, row, advice, offset):
         value = self.layouter.cs.query_instance(instance, row)
         cell, _ = self.assign_advice(advice, offset, value)
-        self.left_out += 1
         return cell, value
 
     def instance_value(self, instance, row):
@@ -388,14 +389,10 @@ class SingleChipAdviceRegion(RegionShape):
         self.columns.add(column)
         if offset >= self.row_count:
             self.row_count = offset + 1
-        self.left_out += 1
         return Cell(self.region_index, offset, column), Value.unknown()
 
     def constrain_constant(self, cell, constant):
         self.num_constants += 1
-
-    def constrain_equal(self, left: Cell, right: Cell):
-        self.left_out += 1
 
 
 class SimpleTableLayouter:
@@ -407,7 +404,6 @@ class SimpleTableLayouter:
         self.used_columns = used_columns
         # column -> (default value Value | None, [assigned flags])
         self.default_and_assigned: Dict[TableColumn, list] = {}
-        self.cells = 0  # assign_cell calls
         # id(column) -> (column, its entry): a TableColumn hashes in Python,
         # and a table assigns a cell of each column a row
         self._entries: Dict[int, tuple] = {}
@@ -421,7 +417,6 @@ class SimpleTableLayouter:
                 raise SynthesisError("table column already used")
             entry = self.default_and_assigned.setdefault(column, [None, []])
             self._entries[id(column)] = (column, entry)
-        self.cells += 1
 
         cs = self.cs
         v = None
@@ -493,7 +488,11 @@ class NamespacedLayouter(Layouter):
 
 
 class SingleChipLayouter(Layouter):
-    """single_pass.rs:40-247."""
+    """single_pass.rs:40-247.  Runs each region's closure once into a
+    recorder, places the region, then hands the backend what it keeps: every
+    recorded call, at absolute rows, to a backend that keeps the layout; one
+    ``store_advice`` call to one that does not, whose store it never reads or
+    writes itself."""
 
     def __init__(self, cs: Assignment, constants: List[Column]):
         self.cs = cs
@@ -508,12 +507,6 @@ class SingleChipLayouter(Layouter):
         self.keeps_layout = cs.keeps_layout
         self.advice_evaluated: Dict[int, bool] = {}
         self.fixed_evaluated: Dict[int, bool] = {}
-        # closures run; backend calls made (an advice value written to a
-        # store counts as one), and calls left out because the backend
-        # keeps no layout
-        self.closure_runs = 0
-        self.calls_handed = 0
-        self.calls_left_out = 0
 
     def evaluates_advice(self, column: Column) -> bool:
         evaluated = self.advice_evaluated.get(column.index)
@@ -531,7 +524,6 @@ class SingleChipLayouter(Layouter):
         keeps_layout = self.keeps_layout
         recorder = SingleChipLayouterRegion if keeps_layout else SingleChipAdviceRegion
         region = recorder(self, len(self.regions))
-        self.closure_runs += 1
         result = assignment(Region(region))
 
         t0 = None if self.shape_s is None else time.perf_counter()
@@ -552,8 +544,7 @@ class SingleChipLayouter(Layouter):
             self.cs.exit_region()
             num_constants = len(region.constants)
         else:
-            self._write_advice(region, region_start)
-            self.calls_left_out += region.left_out
+            self.cs.store_advice(region_start, region_start + region.row_count, region.advice)
             num_constants = region.num_constants
 
         if num_constants:
@@ -573,10 +564,8 @@ class SingleChipLayouter(Layouter):
                         self.regions[advice.region_index] + advice.row_offset,
                     )
                     next_constant_row += 1
-                self.calls_handed += 2 * num_constants
             else:
                 next_constant_row += num_constants
-                self.calls_left_out += 2 * num_constants
             self.columns[constants_column] = next_constant_row
 
         return result
@@ -601,23 +590,6 @@ class SingleChipLayouter(Layouter):
                 cs.enable_selector(call[1], region_start + call[2])
             else:
                 cs.copy(call[1], region_start + call[2], call[3], call[4])
-        self.calls_handed += len(calls)
-
-    def _write_advice(self, region: SingleChipAdviceRegion, region_start: int):
-        """Write a region's recorded advice values into the backend's
-        store, at absolute rows; an unknown value is checked but not
-        stored."""
-        cs = self.cs
-        advice = region.advice
-        if region_start + region.row_count > cs.usable_rows:
-            for _, offset, _ in advice:
-                if region_start + offset >= cs.usable_rows:
-                    raise NotEnoughRowsAvailable(cs.k)
-        store = cs.advice
-        for index, offset, v in advice:
-            if v is not None:
-                store[index][region_start + offset] = v
-        self.calls_handed += len(advice)
 
     def assign_table(self, name, assignment):
         keeps_layout = self.keeps_layout
@@ -645,14 +617,9 @@ class SingleChipLayouter(Layouter):
                 raise SynthesisError("table column missing default value")
             if keeps_layout:
                 self.cs.fill_from_row(column.inner, first_unused, default)
-        if keeps_layout:
-            self.calls_handed += table.cells + len(daa)
-        else:
-            self.calls_left_out += table.cells + len(daa)
 
     def constrain_instance(self, cell: Cell, instance: Column, row: int):
         if not self.keeps_layout:
-            self.calls_left_out += 1
             return
         self.cs.copy(
             cell.column,
@@ -660,7 +627,6 @@ class SingleChipLayouter(Layouter):
             instance,
             row,
         )
-        self.calls_handed += 1
 
     def get_challenge(self, challenge):
         return self.cs.get_challenge(challenge)

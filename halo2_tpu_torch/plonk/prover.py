@@ -44,9 +44,11 @@ from .keygen import ProvingKey, batch_invert_assigned
 class WitnessCollection(Assignment):
     """The prover's witness: the advice values of the current phase, as the
     circuit gave them (``int`` or ``Assigned``), in ``advice``, one dict a
-    column from row to value.  It keeps no layout, so ``SimpleFloorPlanner``
-    writes those values straight into ``advice`` and makes no other call;
-    the methods below serve ``V1FloorPlanner``, which makes every call."""
+    column from row to value, which ``create_proof`` reads.  It owns that
+    store: every value reaches it through ``store_advice``, which checks the
+    rows and the values.  It keeps no layout, so ``SimpleFloorPlanner``
+    makes one ``store_advice`` call a region and no other; the other methods
+    serve ``V1FloorPlanner``, which makes every call."""
 
     keeps_layout = False
 
@@ -71,18 +73,24 @@ class WitnessCollection(Assignment):
     def evaluates_fixed(self, column):
         return False
 
+    def store_advice(self, region_start, region_end, records):
+        if region_end > self.usable_rows:
+            for _, offset, _ in records:
+                if region_start + offset >= self.usable_rows:
+                    raise NotEnoughRowsAvailable(self.k)
+        advice = self.advice
+        for index, offset, v in records:
+            if v is not None:
+                if v.__class__ is not int and v.__class__ is not Assigned:
+                    to_assigned(v)  # the TypeError of a value that is neither
+                advice[index][region_start + offset] = v
+
     def assign_advice(self, column, row, to):
         # ignore assignments for columns in a different phase
         if not self.evaluates_advice(column):
             return None
-        if row >= self.usable_rows:
-            raise NotEnoughRowsAvailable(self.k)
         value = to()
-        v = value.value()
-        if v is not None:
-            if not isinstance(v, (int, Assigned)):
-                to_assigned(v)  # the TypeError of a value that is neither
-            self.advice[column.index][row] = v
+        self.store_advice(row, row + 1, ((column.index, 0, value.value()),))
         return value
 
     def assign_fixed(self, column, row, to):

@@ -333,6 +333,34 @@ def test_v1_floor_planner_equals_jax(a):
     assert summary(port.verify(vectorized=True)) == summary(port.verify(vectorized=False)) == want
 
 
+def test_v1_floor_planner_into_the_witness_equals_jax():
+    """``V1FloorPlanner`` into the prover's ``WitnessCollection`` keeps the
+    advice values that the JAX package's keeps (an ``int`` of the port's is
+    an ``Assigned`` over 1 of the JAX package's)."""
+    from halo2_tpu.plonk.circuit import ConstraintSystem as JaxConstraintSystem
+    from halo2_tpu.plonk.prover import WitnessCollection as JaxWitnessCollection
+    from halo2_tpu_torch.plonk.circuit import ConstraintSystem
+    from halo2_tpu_torch.plonk.prover import WitnessCollection
+
+    k = 4
+    inst = [7 * pow(5, 4, P) % P]
+    stores = []
+    for cs_cls, witness_cls, circuit in (
+            (ConstraintSystem, WitnessCollection, tc.V1Simple(7, TV.known(5))),
+            (JaxConstraintSystem, JaxWitnessCollection, JaxV1Simple(7, JV.known(5)))):
+        cs = cs_cls()
+        config = type(circuit).configure(cs)
+        usable = (1 << k) - (cs.blinding_factors() + 1)
+        witness = witness_cls(k, cs, 0, [inst], {}, usable)
+        circuit.floor_planner.synthesize(witness, circuit, config, list(cs.constants))
+        stores.append([
+            sorted((row, (v % P, 1) if isinstance(v, int) else (v.numerator % P, v.denominator % P))
+                   for row, v in col.items())
+            for col in witness.advice])
+    assert stores[0] == stores[1]
+    assert sum(map(len, stores[0])) > 0
+
+
 def test_convert_selectors_equals_jax():
     from halo2_tpu.plonk.circuit import ConstraintSystem as JaxConstraintSystem
     from halo2_tpu.plonk.keygen import convert_selectors as jax_convert_selectors

@@ -9,19 +9,22 @@ keeps no layout, keygen's ``KeygenAssembly`` and ``MockProver``), on a small
 circuit with a table, regions of four shapes, selectors, a constant,
 instance copies and a second-phase column that reads a challenge:
 
-- each closure runs once, and the layouter's ``closure_runs`` equals its
-  number of regions;
+- each closure runs once: the circuit's count of its closure runs equals
+  the layouter's number of regions;
 - a ``to`` runs once where the backend evaluates its column, and never
   where the backend skips it;
 - the region starts equal those of the JAX package's ``SimpleFloorPlanner``
   on the same circuit, as do the backends' own records; for keygen and
   ``MockProver`` so does every backend call (regions, selectors, advice and
   fixed cells with their values, copies, table fills), in order; the
-  witness gets only its phase's advice values, written into its store, in
+  witness gets only its phase's advice values, through ``store_advice``, in
   the order, rows and values of the JAX run's advice calls, and no other
   call;
-- the layouter's counters of the calls it hands the backend and of those it
-  leaves out, here and for BenchPlonk;
+- the calls each backend receives, counted from what it logged, and those
+  left out, here and for BenchPlonk;
+- a backend that keeps no layout needs no store the layouter knows: one
+  with only ``store_advice``, ``evaluates_advice``, ``query_instance`` and
+  ``get_challenge`` gets what ``WitnessCollection`` gets;
 - a region past the usable rows still raises ``NotEnoughRowsAvailable``, and
   a witness value that is neither an ``int`` nor an ``Assigned`` raises
   ``to_assigned``'s ``TypeError``.
@@ -175,9 +178,11 @@ def _column(col):
 
 def logged(fe, cls):
     """``cls`` with a log of every backend call the layouter makes, in order,
-    with the values the backend returns, and, where the backend has a store
-    of advice dicts (``WitnessCollection``), a log of the writes into it;
-    instance queries are not logged."""
+    with the values the backend returns, and, for ``WitnessCollection``, a
+    log of the writes into its store (``stores``: the port's
+    ``store_advice`` calls; ``writes``: the values each stores, as the JAX
+    package's witness writes them from its ``assign_advice``); instance
+    queries are not logged."""
 
     def stored(v):
         a = fe.to_assigned(v)
@@ -201,10 +206,17 @@ def logged(fe, cls):
         def __init__(self, *args):
             super().__init__(*args)
             self.log = []
+            self.stores = []
             self.writes = []
-            if isinstance(getattr(self, "advice", None), list) and all(
+            if fe is not PORT and isinstance(getattr(self, "advice", None), list) and all(
                     isinstance(col, dict) for col in self.advice):
                 self.advice = [Store(i, self.writes) for i in range(len(self.advice))]
+
+        def store_advice(self, region_start, region_end, records):
+            super().store_advice(region_start, region_end, records)
+            self.stores.append((region_start, region_end, list(records)))
+            self.writes.extend((index, region_start + offset, stored(v))
+                               for index, offset, v in records if v is not None)
 
         def enter_region(self, name):
             self.log.append(("enter", str(name)))
@@ -300,7 +312,7 @@ def test_each_region_closure_runs_once(backend):
         circuit.closure_runs = 0
         layouter = synthesize(PORT, circuit, config, constants, target)
         assert len(layouter.regions) == 4
-        assert circuit.closure_runs == layouter.closure_runs == len(layouter.regions)
+        assert circuit.closure_runs == len(layouter.regions)
 
 
 # ``to`` runs by column over the synthesis into each backend in turn: the
@@ -375,11 +387,19 @@ def test_witness_collection_receives_no_layout_call():
         assert not hasattr(target, "fixed")
 
 
-# (calls handed to the backend, calls left out) of each synthesis: the
-# circuit makes 28 calls in all, 5 for the table (4 cells and a fill), 8
+def calls_received(target) -> int:
+    """The calls a logged backend received: its logged calls other than
+    entering and leaving a region, and the values written into its store."""
+    return sum(entry[0] not in ("enter", "exit") for entry in target.log) + len(target.writes)
+
+
+# the circuit makes 28 calls in all: 5 for the table (4 cells and a fill), 8
 # in "load" (constant: a fixed cell and a copy), 10 in "second phase", 2 in
-# "fixed only", 2 in "after fixed" and the instance copy; the witness gets
-# the 7 first-phase advice cells in phase 0 and the 3 z cells in phase 1
+# "fixed only", 2 in "after fixed" and the instance copy
+CIRCUIT_CALLS = 28
+# (calls the backend received, calls left out) of each synthesis: the
+# witness gets the 7 first-phase advice cells in phase 0 and the 3 z cells
+# in phase 1
 EXPECTED_CALLS = {
     "witness": [(7, 21), (3, 25)],
     "keygen": [(28, 0)],
@@ -392,8 +412,9 @@ def test_layouter_counts_the_calls_it_hands_and_leaves_out(backend):
     circuit, config, constants, targets = setup(PORT, backend)
     counts = []
     for target in targets:
-        layouter = synthesize(PORT, circuit, config, constants, target)
-        counts.append((layouter.calls_handed, layouter.calls_left_out))
+        synthesize(PORT, circuit, config, constants, target)
+        received = calls_received(target)
+        counts.append((received, CIRCUIT_CALLS - received))
     assert counts == EXPECTED_CALLS[backend]
 
 
@@ -401,8 +422,8 @@ def test_layouter_counts_the_calls_it_hands_and_leaves_out(backend):
 def test_layouter_counts_for_benchplonk(backend):
     """BenchPlonk at k=5: 13 iterations of two regions of 3 advice and 4
     fixed cells, and two copies: 78 advice cells, 104 fixed cells and 26
-    copies.  The witness gets the advice and leaves the rest out; keygen
-    gets all 208 calls."""
+    copies.  The witness gets the 78 advice values; keygen gets all 208
+    calls."""
     from torch_circuits import BenchPlonkCircuit
 
     k = 5
@@ -410,16 +431,67 @@ def test_layouter_counts_for_benchplonk(backend):
     cs = PORT.ConstraintSystem()
     config = BenchPlonkCircuit.configure(cs)
     if backend == "witness":
-        target = PORT.WitnessCollection(k, cs, 0, [], {}, (1 << k) - (cs.blinding_factors() + 1))
+        target = logged(PORT, PORT.WitnessCollection)(
+            k, cs, 0, [], {}, (1 << k) - (cs.blinding_factors() + 1))
     else:
-        target = PORT.KeygenAssembly(k, cs, 1 << k)
+        target = logged(PORT, PORT.KeygenAssembly)(k, cs, 1 << k)
         circuit = circuit.without_witnesses()
     layouter = synthesize(PORT, circuit, config, list(cs.constants), target)
-    assert layouter.closure_runs == 52
-    expected = (78, 130) if backend == "witness" else (208, 0)
-    assert (layouter.calls_handed, layouter.calls_left_out) == expected
+    assert len(layouter.regions) == 52
+    assert calls_received(target) == (78 if backend == "witness" else 208)
     if backend == "witness":
-        assert sum(len(col) for col in target.advice) == 78
+        assert target.log == []
+        assert sum(len(col) for col in target.advice) == len(target.writes) == 78
+
+
+class AdviceOnly:
+    """A backend that keeps no layout and has nothing but the methods a
+    ``SingleChipLayouter`` calls on one: no ``advice``, ``k`` or
+    ``usable_rows``.  It keeps the ``store_advice`` calls it gets."""
+
+    keeps_layout = False
+
+    def __init__(self, phases, phase, instance, challenges):
+        self.phases, self.phase = phases, phase
+        self.instance, self.challenges = instance, challenges
+        self.stores = []
+
+    def store_advice(self, region_start, region_end, records):
+        self.stores.append((region_start, region_end, list(records)))
+
+    def evaluates_advice(self, column):
+        return self.phases[column.index] == self.phase
+
+    def query_instance(self, column, row):
+        col = self.instance[column.index]
+        return PORT.Value.known(col[row] if row < len(col) else 0)
+
+    def get_challenge(self, challenge):
+        if challenge.index in self.challenges:
+            return PORT.Value.known(self.challenges[challenge.index])
+        return PORT.Value.unknown()
+
+
+def test_a_backend_with_only_store_advice_gets_what_the_witness_gets():
+    circuit, config, constants, witnesses = setup(PORT, "witness")
+
+    def norm(stores):
+        return [(start, end, [(index, offset, None if v is None else
+                               (PORT.to_assigned(v).numerator, PORT.to_assigned(v).denominator))
+                              for index, offset, v in records])
+                for start, end, records in stores]
+
+    for witness in witnesses:
+        backend = AdviceOnly(witness.cs.advice_column_phase, witness.current_phase,
+                             witness.instances, witness.challenges)
+        layouter = synthesize(PORT, circuit, config, constants, backend)
+        assert layouter.regions == [0, 2, 2, 4]
+        synthesize(PORT, circuit, config, constants, witness)
+        assert norm(backend.stores) == norm(witness.stores)
+        assert len(backend.stores) == 4
+        kept = {(index, start + offset) for start, _, records in backend.stores
+                for index, offset, v in records if v is not None}
+        assert kept == {(index, row) for index, col in enumerate(witness.advice) for row in col}
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
