@@ -163,21 +163,29 @@ Phases, one line each, every failure raising (non-zero exit, no result line):
    assembly's ``build_vk`` (one MSM a column) and ``build_pk`` on phase 6's
    keygen synthesis equal the keys' commitments (affine) and polys,
    ``get_vk()`` is the vk, and a curve-less copy of phase 6's vk gives the
-   same ``pinned()`` and ``transcript_repr`` on the card as on the CPU.
+   same ``pinned()`` and ``transcript_repr`` on the card as on the CPU;
+20. the lookup's matching at the main path's size: a SHA-like lookup at 2^17
+   rows (2^16 distinct table values, the padding rows repeating row 0's, the
+   inputs drawn from the table), ``lookup_permute`` against
+   ``lookup_permute_plain`` on the same columns (both permuted columns and
+   the missing-value flag, exactly; with one input not in the table, both
+   flags 1), and ``lookup_match`` against ``lookup_match_plain`` on the same
+   sorted keys; kernel and plain times of both, and ``lookup_match``'s bound.
 
 Phases 6, 10, 11, 14, 15, 16, 17 and 19 each zero the kernels' launch counters (and
 the calls of ``limb.finv`` and ``msm_many``) just before they start and read
 them just after; K1, ``mont_pow``, ``ec_horner`` and the three MSM entries
 must each have been launched (and K2 and ``ec_scalar_mul`` in phases 11, 15
-and 16, K2 in 10, through ``gntt`` and the IPA rounds, K2 in 17, where it
-folds the shards' partial MSMs); on each,
+and 16, K2 in 10, through ``gntt`` and the IPA rounds, ``lookup_match`` in
+10 and 16, through the lookups, K2 in 17, where it folds the shards' partial
+MSMs); on each,
 ``msm_digits``, ``ec_window_table`` and ``ec_horner`` launches must equal the
 ``msm_many`` calls and ``ec_window_fold`` launches lie between one and three
 times them, and on phase 6 ``mont_pow`` launches must equal the ``finv`` calls,
 the standalone K2 / K3 launches be 0, ``field_add``, ``field_sub``,
 ``field_neg`` and ``stockham_axis`` each be launched, and on phases 6 and 19
-no plain version (the carry chains, the stage loop, K1's) be called on a CUDA
-tensor (in 19, ``field_add``, ``field_sub`` and ``stockham_axis`` must be
+no plain version (the carry chains, the stage loop, K1's, the lookup's
+matching) be called on a CUDA tensor, nor on phase 10 the lookup's (in 19, ``field_add``, ``field_sub`` and ``stockham_axis`` must be
 launched). Then one JSON line with every
 kernel's launches by phase, error, times and bound, and as the last line
 ``{"ok": true, "device": {...}}``. Times are CUDA-event times on this card,
@@ -186,8 +194,9 @@ the bytes the function must move over 3.35 TB/s and its 32-bit multiply-adds
 (136 per Montgomery product: an 8-word CIOS product) over the card's 32-bit
 integer rate (SMs x 64 lanes x the maximum SM clock, ``bench/roofline.py``),
 for this run's inputs. No PyTorch call computes a Montgomery product, a
-field addition modulo p, an NTT over these fields, an EC operation or the
-integer chains, so ``library_ms`` is null throughout.
+field addition modulo p, an NTT over these fields, an EC operation, the
+integer chains or the lookup's multiset matching, so ``library_ms`` is null
+throughout.
 """
 
 from __future__ import annotations
@@ -2003,6 +2012,83 @@ def phase_stockham(torch, limb, ntt_ops, spec, rs, dev, peaks,
     return res
 
 
+def sha_like_columns(torch, limb, spec, n: int, usable: int, rs, dev):
+    """A SHA-like lookup's compressed columns, (16, n) Montgomery limbs on the
+    card: the table's n / 2 distinct values (0, 1 and p-1 among them), then
+    padding rows that repeat row 0's value, as Table16's spread table; the
+    inputs drawn from the table's first ``usable`` rows."""
+    distinct = special_limbs(torch, limb, spec, n // 2, rs, dev)
+    table = torch.cat([distinct, distinct[:, :1].expand(16, n - n // 2)], dim=1).contiguous()
+    pick = torch.from_numpy(rs.integers(0, usable, size=n)).to(dev)
+    return table[:, pick].contiguous(), table
+
+
+def lookup_match_bound(peaks, u: int, repeated: int) -> dict:
+    """Read both columns' sorted keys and indices once (40 B a row each),
+    read each input value once and write it to both permuted columns (64 B
+    each), read each leftover table value once; no products."""
+    return bound(peaks, 2 * 40 * u + 3 * 64 * u + 64 * repeated, 0)
+
+
+def phase_lookup_match(torch, limb, lookup_ops, mm, spec, rs, dev, peaks, k: int = 17,
+                       bf: int = 10) -> dict:
+    """20: the lookup's matching at the main path's size, a SHA-like lookup at
+    2^k rows with ``bf`` blinding rows: ``lookup_permute`` against
+    ``lookup_permute_plain`` on the same columns (the permuted columns'
+    first ``usable`` rows and the missing-value flag; with one input not in
+    the table the flag alone, since the repeated rows are then left partly
+    unwritten), and ``lookup_match`` against ``lookup_match_plain`` on the
+    same sorted keys.  Exact; CUDA-event times."""
+    n = 1 << k
+    usable = n - (bf + 1)
+    ci, ct = sha_like_columns(torch, limb, spec, n, usable, rs, dev)
+
+    def rows(out):
+        return out[0][:, :usable], out[1][:, :usable], out[2]
+
+    before = lookup_ops.lookup_match.launches
+    got = lookup_ops.lookup_permute(spec, ci, ct, usable)
+    if lookup_ops.lookup_match.launches - before != 3:
+        raise AssertionError("[20] lookup_permute did not launch lookup_match's three kernels")
+    err = exact(torch, f"[20] lookup_permute n=2^{k}", rows(got),
+                rows(lookup_ops.lookup_permute_plain(spec, ci, ct, usable)))
+    if got[2].item() != 0:
+        raise AssertionError("[20] an input drawn from the table was flagged missing")
+    two = limb.from_ints(spec, [2], dev)
+    if (ct[:, :usable] == two).all(dim=0).any():
+        raise AssertionError("[20] 2 is in the table: the absent value must be another")
+    absent = ci.clone()
+    absent[:, usable // 3] = two[:, 0]
+    flags = [f(spec, absent, ct, usable)[2].item()
+             for f in (lookup_ops.lookup_permute, lookup_ops.lookup_permute_plain)]
+    if flags != [1, 1]:
+        raise AssertionError(f"[20] an input not in the table: flags {flags}, want [1, 1]")
+
+    skeys, idx = lookup_ops._sorted(spec, ci, ct, usable, mm.mont_mul)
+    repeated = int((skeys[0, :, 1:] == skeys[0, :, :-1]).all(dim=0).sum().item())
+
+    def match():
+        return lookup_ops.lookup_match(skeys, idx, ci, ct)
+
+    def match_plain():
+        return lookup_ops.lookup_match_plain(skeys, idx, ci, ct)
+
+    err = max(err, exact(torch, f"[20] lookup_match n=2^{k}", rows(match()), rows(match_plain())))
+    ms = cuda_ms(match, 20)
+    plain_ms = cuda_ms(match_plain, 3)
+    ms2 = cuda_ms(match, 20)
+    permute_ms = cuda_ms(lambda: lookup_ops.lookup_permute(spec, ci, ct, usable), 20)
+    permute_plain_ms = cuda_ms(lambda: lookup_ops.lookup_permute_plain(spec, ci, ct, usable), 3)
+    r = {"n": n, "u": usable, "repeated_rows": repeated, "ms": min(ms, ms2),
+         "plain_ms": plain_ms, "permute_ms": permute_ms, "permute_plain_ms": permute_plain_ms,
+         **lookup_match_bound(peaks, usable, repeated)}
+    log(f"[20] lookup_match n=2^{k} (u={usable}, {repeated} repeated rows): exact, and the "
+        f"missing flag on both sides; kernels {ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}); lookup_permute (keys, sort, match) "
+        f"{permute_ms:.4f} ms, plain {permute_plain_ms:.3f} ms")
+    return {"shapes": [r], "max_abs_err": err}
+
+
 class LibSpy:
     """The kernel library, recording each C entry called and its arguments:
     which entry K1 took, and on whose storage."""
@@ -2182,6 +2268,7 @@ def main() -> None:
     from halo2_tpu_torch.fields import field_ops, limb
     from halo2_tpu_torch.fields import mont_mul as mont_mul_mod
     from halo2_tpu_torch.fields.spec import BN254_FQ, BN254_FR, PASTA_FP, PASTA_FQ
+    from halo2_tpu_torch.ops import lookup as lookup_ops
     from halo2_tpu_torch.ops import msm as msm_ops
     from halo2_tpu_torch.ops import ntt as ntt_ops
     from halo2_tpu_torch.poly import ipa as ipa_mod
@@ -2269,11 +2356,13 @@ def main() -> None:
         "ec_window_fold": msm_ops.ec_window_fold,
         "field_add": field_ops.field_add, "field_sub": field_ops.field_sub,
         "field_neg": field_ops.field_neg, "stockham_axis": ntt_ops.stockham_axis,
+        "lookup_match": lookup_ops.lookup_match,
     }
     plain_on_card = PlainOnCard(
         [(field_ops, "field_add_plain"), (field_ops, "field_sub_plain"),
          (field_ops, "field_neg_plain"), (ntt_ops, "stockham_axis_plain"),
-         (mont_mul_mod, "mont_mul_plain")])
+         (mont_mul_mod, "mont_mul_plain"), (lookup_ops, "lookup_permute_plain"),
+         (lookup_ops, "lookup_match_plain")])
     os.environ["HALO2_TPU_PROFILE"] = "1"
     start_counting(torch, counted, calls.values())
     plain_on_card.reset()
@@ -2357,10 +2446,16 @@ def main() -> None:
 
     # ---- 10: the pins; lookups + SHPLONK at k=14 -------------------------------
     start_counting(torch, counted, calls.values())
+    plain_on_card.reset()
     phase_pins(torch, dev)
     phase_lookup(torch, profiling, params, dev)
-    launches10 = read_counts(torch, counted, "[10]", calls, PATH_KERNELS + ("ec_add",))
+    launches10 = read_counts(torch, counted, "[10]", calls,
+                             PATH_KERNELS + ("ec_add", "lookup_match"))
     check_msm_launches("[10]", launches10, calls)
+    lookup_plain = {name: plain_on_card.calls[name]
+                    for name in ("lookup_permute_plain", "lookup_match_plain")}
+    if any(lookup_plain.values()):
+        raise AssertionError(f"[10] the lookup's plain matching ran on a CUDA tensor: {lookup_plain}")
 
     # ---- 11: IPA at k=14 ---------------------------------------------------------
     start_counting(torch, counted, calls.values())
@@ -2434,7 +2529,7 @@ def main() -> None:
         sinsemilla = phase_sinsemilla(torch, counted, profiling, smi, dev)
         check_wrong_digest(sha256_mock, wrong_digest, per_row)
     launches16 = read_counts(torch, counted, "[16]", calls,
-                             PATH_KERNELS + ("ec_add", "ec_scalar_mul"))
+                             PATH_KERNELS + ("ec_add", "ec_scalar_mul", "lookup_match"))
     check_msm_launches("[16]", launches16, calls)
     log(f"[16] SHA-256, ECC and Sinsemilla: {time.perf_counter() - t0:.1f} s "
         f"((b) {sha256_proof['phase_s']:.1f} s)")
@@ -2496,6 +2591,13 @@ def main() -> None:
     log(f"[19] the last of the public surface: {surface['phase_s']:.1f} s")
     log(f"[19] phases 1-19: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"surface": surface}))
+
+    # ---- 20: the lookup's matching against its plain version at 2^17 ----------
+    t0 = time.perf_counter()
+    lookup_res = phase_lookup_match(torch, limb, lookup_ops, mont_mul_mod, BN254_FR, rs, dev,
+                                    peaks)
+    log(f"[20] the lookup's matching: {time.perf_counter() - t0:.1f} s; "
+        f"phases 1-20: {time.perf_counter() - t_start:.1f} s")
 
     def main_path(name):
         """A prove-path kernel's launches in phases 6, 10, 11, 14, 15, 16, 17 and 19."""
@@ -2560,6 +2662,10 @@ def main() -> None:
         {"name": "stockham_axis", "route": "cuda", "source": "halo2_tpu_torch/csrc/ntt.cu",
          "replaces": "halo2_tpu/fields/pallas_kernels.py:129", **main_path("stockham_axis"),
          **chain(stockham), "sixstep": stockham["sixstep"]},
+        {"name": "lookup_match", "route": "cuda", "source": "halo2_tpu_torch/csrc/lookup.cu",
+         "replaces": "halo2_tpu/plonk/prover.py:258", **main_path("lookup_match"),
+         **chain(lookup_res),
+         **{key: lookup_res["shapes"][0][key] for key in ("permute_ms", "permute_plain_ms")}},
         {"name": "mont_mul_tiled", "route": "cuda",
          "source": "halo2_tpu_torch/csrc/mont_mul_tiled.cu",
          "replaces": "halo2_tpu/fields/pallas_kernels.py:80", **roofline_path("mont_mul_tiled"),

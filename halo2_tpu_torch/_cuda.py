@@ -22,7 +22,7 @@ import time
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 _SOURCES = ("mont_mul.cu", "field_ops.cu", "ntt.cu", "ec.cu", "msm.cu", "mont_mul_tiled.cu",
-            "roofline.cu")
+            "roofline.cu", "lookup.cu")
 _HEADERS = ("field.cuh", "ec.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -53,6 +53,7 @@ _SIGNATURES = {
     "h2_mont_mul_tiled": [_P, _P, _P, ctypes.c_int64, _P, ctypes.c_uint32, _P],
     "h2_int_muladd": [_P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P],
     "h2_int_addmask": [_P, _P, ctypes.c_int64, ctypes.c_int, _P],
+    "h2_lookup_match": [_P] * 9 + [_I64, _I64, _P],
 }
 
 

@@ -3,9 +3,9 @@
 Port of the JAX package's ``plonk/prover.py`` (the reference
 plonk/prover.rs).  The transcript interaction order below IS the proof
 format and mirrors the reference exactly.  Device work: witness
-materialization, MSM commitments, NTTs, the grand-product scan and the
-quotient evaluation.  Host work: transcript hashing, challenges and the
-lookup multiset matching.
+materialization, MSM commitments, NTTs, the lookup multiset matching, the
+grand-product scan and the quotient evaluation.  Host work: transcript
+hashing and challenges.
 
 Commitments that the transcript writes back to back (the advice columns of a
 phase, the lookups' permuted columns, the permutation and lookup products,
@@ -27,6 +27,7 @@ from ..curves.point import to_affine_ints
 from ..fields import limb
 from ..fields.spec import NLIMBS, FieldSpec
 from ..ops import arith
+from ..ops import lookup as lookup_ops
 from ..plonk.error import ConstraintSystemFailure, InstanceTooLarge, NotEnoughRowsAvailable
 from ..poly.domain import EvaluationDomain
 from ..poly.polynomial import COEFF, LAGRANGE, Poly, Rotation
@@ -278,7 +279,8 @@ def _permute_expression_pair(rng, input_vals: List[int], table_vals: List[int], 
     """Host multiset matching, as lookup/prover.rs:391-475: the sorted
     inputs, each new value's first row matched by a table row, the repeats'
     rows filled by the leftover table values; then bf + 1 random blinding
-    rows for each column, input first."""
+    rows for each column, input first.  The prover runs
+    ``permute_expression_pair_dev``; this is what the tests hold it to."""
     usable = n - (bf + 1)
     permuted_input = sorted(input_vals[:usable])
     leftover: Dict[int, int] = {}
@@ -305,12 +307,32 @@ def _permute_expression_pair(rng, input_vals: List[int], table_vals: List[int], 
     return permuted_input, permuted_table
 
 
+def permute_expression_pair_dev(spec: FieldSpec, rng, comp_input, comp_table, n: int, bf: int):
+    """``_permute_expression_pair`` on the compressed columns as (16, n)
+    Montgomery limbs, on their device: (perm_input, perm_table), (16, n),
+    equal limb for limb to the host function's ints in Montgomery form, with
+    the same draws from ``rng``.  The matching is ``ops/lookup.py``'s (the
+    kernels on the card, the plain version on the CPU); its one pull is the
+    flag of a missing input value."""
+    usable = n - (bf + 1)
+    perm_input, perm_table, missing = lookup_ops.lookup_permute(spec, comp_input, comp_table, usable)
+    with profiling.phase("limb: device to host"):
+        if missing.item():
+            raise ConstraintSystemFailure("lookup input not in table")
+    # the blinding rows: bf + 1 for the input, then bf + 1 for the table
+    blinds = limb.from_ints(spec, [rng() for _ in range(2 * (bf + 1))], comp_input.device)
+    perm_input[:, usable:] = blinds[:, : bf + 1]
+    perm_table[:, usable:] = blinds[:, bf + 1 :]
+    return perm_input, perm_table
+
+
 @profiling.profiled("lookup: compress + permute")
 def _lookup_permute(arg, pk, theta, advice_values, fixed_values, instance_values,
                     challenges_dev, rng) -> dict:
     """One lookup's compressed columns and their permutation; draws the
     permutation's blinding rows, then the input and the table commitment
-    blinds, in the reference's order."""
+    blinds, in the reference's order.  The span "lookup: host matching"
+    times the matching, which runs on the columns' device."""
     domain = pk.vk.domain
     spec = domain.spec
     n = domain.n
@@ -324,11 +346,10 @@ def _lookup_permute(arg, pk, theta, advice_values, fixed_values, instance_values
 
     comp_input = compress_expressions(spec, arg.input_expressions, theta, evaluate)
     comp_table = compress_expressions(spec, arg.table_expressions, theta, evaluate)
-    ints = limb.to_ints(spec, torch.stack([comp_input, comp_table], dim=1))  # one pull
     with profiling.phase("lookup: host matching"):
-        pi, pt = _permute_expression_pair(rng, ints[:n], ints[n:], n, bf)
-        perm_input = limb.from_ints(spec, pi, domain.device)
-        perm_table = limb.from_ints(spec, pt, domain.device)
+        perm_input, perm_table = permute_expression_pair_dev(
+            spec, rng, comp_input, comp_table, n, bf
+        )
     return {
         "comp_input": comp_input,
         "comp_table": comp_table,

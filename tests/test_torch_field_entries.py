@@ -26,6 +26,7 @@ from halo2_tpu_torch.curves import ec_kernels as ec
 from halo2_tpu_torch.curves.spec import BN254_G1
 from halo2_tpu_torch.fields import ALL_FIELDS, field_ops, limb
 from halo2_tpu_torch.fields import mont_mul as mont_mul_mod
+from halo2_tpu_torch.ops import lookup as lookup_ops
 from halo2_tpu_torch.ops import msm as msm_ops
 from halo2_tpu_torch.ops import ntt as ntt_ops
 
@@ -190,6 +191,8 @@ def _refuse_wrappers(monkeypatch):
     for mod in (mont_mul_mod, limb):
         for name in ("mont_mul", "mont_pow"):
             monkeypatch.setattr(mod, name, refused)
+    for name in ("mont_mul", "lookup_match"):
+        monkeypatch.setattr(lookup_ops, name, refused)
 
 
 def _plain_cases():
@@ -211,17 +214,30 @@ def _plain_cases():
 
     omega, _ = _roots(fr, 3)
     x, tw = limbs(fr, 90, (8, 2)), torch.from_numpy(_power_np(fr, omega, 4).astype(np.int32))
+    table = limbs(fr, 91, (32,))
+    inputs = table[:, torch.from_numpy(np.random.default_rng(92).integers(0, 16, size=32))]
+
+    def permute_dev():
+        from halo2_tpu_torch.plonk import prover
+        from halo2_tpu_torch.utils.rng import FieldRng
+
+        return prover.permute_expression_pair_dev(fr, FieldRng(fr, b"plain"), inputs, table, 32, 5)
+
     return {
         "ec_add_plain": lambda: ec.ec_add_plain(curve, p, q),
         "ec_double_plain": lambda: ec.ec_double_plain(curve, p),
         "ec_horner_plain": lambda: ec.ec_horner_plain(curve, sums, 1),
         "ec_window_fold_plain": window_fold,
         "stockham_axis_plain": lambda: ntt_ops.stockham_axis_plain(fr, x, tw, 3),
+        "lookup_permute_plain": lambda: tuple(  # the rows past usable are not written
+            t[:, :26] for t in lookup_ops.lookup_permute_plain(fr, inputs, table, 26)[:2]),
+        "permute_expression_pair_dev": permute_dev,
     }
 
 
 @pytest.mark.parametrize("name", ["ec_add_plain", "ec_double_plain", "ec_horner_plain",
-                                  "ec_window_fold_plain", "stockham_axis_plain"])
+                                  "ec_window_fold_plain", "stockham_axis_plain",
+                                  "lookup_permute_plain", "permute_expression_pair_dev"])
 def test_plain_versions_call_no_kernel_wrapper(name, monkeypatch):
     """The plain versions that the card's kernels are held to run on the
     plain chains and ``mont_mul_plain`` alone, so no kernel code (``field.cuh``

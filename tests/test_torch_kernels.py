@@ -16,7 +16,10 @@ card through them alone; K1's field entries ``field_add`` / ``field_sub`` /
 stage loop, and K1 reading a broadcast operand in place; the last public
 functions of the port (``limb.fdbl`` / ``to_int``, ``arith.eval_lagrange``,
 ``Poly``'s algebra, the domain's constructors) on the card against the same
-calls on the CPU, with their launches, and the domain's default device.
+calls on the CPU, with their launches, and the domain's default device; the
+lookup's matching (``ops/lookup.py``, ``csrc/lookup.cu``) against its plain
+version and the host matching up to 2^17 rows, and its one pull a lookup in a
+pinned proof.
 On a host with two or more cards, the sharded NTT,
 iNTT and MSM (``parallel/``) over meshes of distinct cards against one card,
 each shard's tables on its own card, and the k=6 proof over a mesh of
@@ -712,6 +715,114 @@ def test_domain_defaults_to_the_card_and_its_constructors_equal_the_cpu(dev):
     assert dom.lagrange_from_vec(a).values is a and dom.coeff_from_vec(a).values is a
     (col,) = batch_invert_assigned(f, [{}], 8)
     assert col.values.is_cuda
+
+
+# ---------------------------------------------------------------------------
+# the lookup's matching (csrc/lookup.cu)
+# ---------------------------------------------------------------------------
+
+
+def _sha_like_columns(spec, n: int, usable: int, seed: int, dev):
+    """A SHA-like lookup's compressed columns: the table's distinct values,
+    then padding rows that repeat row 0's value; inputs drawn from it."""
+    rs = np.random.default_rng(seed)
+    distinct = _values(spec.p, seed, usable // 2)
+    table = distinct + [distinct[0]] * (n - len(distinct))
+    inputs = [table[int(i)] for i in rs.integers(0, usable, size=n)]
+    return inputs, table, limb.from_ints(spec, inputs, dev), limb.from_ints(spec, table, dev)
+
+
+@pytest.mark.parametrize("k", [5, 12, 17])
+def test_lookup_match_kernel_matches_plain_and_the_host(dev, k):
+    from halo2_tpu_torch.ops import lookup as lookup_ops
+    from halo2_tpu_torch.plonk import prover
+    from halo2_tpu_torch.plonk.error import ConstraintSystemFailure
+    from halo2_tpu_torch.utils.rng import FieldRng
+
+    spec, n, bf = BN254_G1.scalar, 1 << k, 10
+    usable = n - bf - 1
+    inputs, table, ci, ct = _sha_like_columns(spec, n, usable, 70 + k, dev)
+    before = lookup_ops.lookup_match.launches
+    got = lookup_ops.lookup_permute(spec, ci, ct, usable)
+    assert lookup_ops.lookup_match.launches - before == 3
+    want = lookup_ops.lookup_permute_plain(spec, ci, ct, usable)
+    for g, w in zip(got[:2], want[:2]):
+        assert g.is_cuda and torch.equal(g[:, :usable], w[:, :usable])
+    assert got[2].item() == want[2].item() == 0
+    pi, pt = prover.permute_expression_pair_dev(spec, FieldRng(spec, b"m"), ci, ct, n, bf)
+    hi, ht = prover._permute_expression_pair(FieldRng(spec, b"m"), inputs, table, n, bf)
+    assert torch.equal(pi, limb.from_ints(spec, hi, dev))
+    assert torch.equal(pt, limb.from_ints(spec, ht, dev))
+    # a value the table lacks sets the flag on both sides, and the prover raises
+    present = set(table[:usable])
+    missing = 2
+    while missing in present:
+        missing += 1
+    absent = limb.from_ints(spec, [missing], dev)
+    ci[:, usable // 3] = absent[:, 0]
+    assert lookup_ops.lookup_permute(spec, ci, ct, usable)[2].item() == 1
+    assert lookup_ops.lookup_permute_plain(spec, ci, ct, usable)[2].item() == 1
+    with pytest.raises(ConstraintSystemFailure):
+        prover.permute_expression_pair_dev(spec, FieldRng(spec, b"m"), ci, ct, n, bf)
+
+
+def test_lookup_match_checks_operands(dev):
+    from halo2_tpu_torch.ops import lookup as lookup_ops
+
+    keys = torch.zeros((2, 4, 8), dtype=torch.int64, device=dev)
+    idx = torch.zeros((2, 8), dtype=torch.int64, device=dev)
+    col = torch.zeros((16, 16), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        lookup_ops.lookup_match(keys.to(torch.int32), idx, col, col)
+    with pytest.raises(ValueError):
+        lookup_ops.lookup_match(keys, idx, col[:, :4], col[:, :4])  # u > n
+    with pytest.raises(ValueError):
+        lookup_ops.lookup_match(keys, idx, col.t().contiguous().t(), col)
+
+
+def test_lookup_permute_on_the_card_pulls_once_and_proves_the_pin(dev, monkeypatch):
+    """tests/plonk_api.rs at k=5 over GWC on the card: each ``_lookup_permute``
+    makes exactly one ``limb: device to host`` pull (the missing-value flag)
+    and launches the matching's kernels; the proof equals the JAX pin."""
+    import sys
+
+    sys.path.insert(0, HERE)
+    from torch_circuits import StandardPlonkCircuit, plonk_api_common
+
+    from halo2_tpu_torch.ops import lookup as lookup_ops
+    from halo2_tpu_torch.plonk import create_proof, keygen_pk, keygen_vk, prover
+    from halo2_tpu_torch.poly.kzg import ParamsKZG
+    from halo2_tpu_torch.poly.multiopen_gwc import gwc_create_proof
+    from halo2_tpu_torch.transcript import Blake2bTranscript
+    from halo2_tpu_torch.utils import profiling
+    from halo2_tpu_torch.utils.rng import FieldRng
+
+    spec = BN254_G1.scalar
+    a, instance, table = plonk_api_common(spec)
+    params = ParamsKZG.setup_host(5, seed=b"plonk-api", device=dev)
+    blank = StandardPlonkCircuit(Value.unknown(), table)
+    vk = keygen_vk(params, blank)
+    pk = keygen_pk(params, vk, blank)
+    circuit = StandardPlonkCircuit(Value.known(a), table)
+    pulls = []
+    inner = prover._lookup_permute
+
+    def counted(*args, **kwargs):
+        profiling.report(reset=True)
+        out = inner(*args, **kwargs)
+        report = {name: calls for name, calls, _ in profiling.report(reset=True)}
+        pulls.append(report.get("limb: device to host", 0))
+        return out
+
+    monkeypatch.setenv("HALO2_TPU_PROFILE", "1")
+    monkeypatch.setattr(prover, "_lookup_permute", counted)
+    before = lookup_ops.lookup_match.launches
+    proof = create_proof(params, pk, [circuit, circuit], [[[instance]], [[instance]]],
+                         FieldRng(spec, b"gwc-rng"), Blake2bTranscript(BN254_G1), gwc_create_proof)
+    assert pulls == [1, 1]
+    assert lookup_ops.lookup_match.launches - before == 3 * len(pulls)
+    with open(os.path.join(HERE, "data", "plonk_api_gwc_k5.hex")) as fh:
+        assert proof == bytes.fromhex(fh.read().strip())
 
 
 # ---------------------------------------------------------------------------
