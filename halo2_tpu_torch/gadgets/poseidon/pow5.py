@@ -12,10 +12,10 @@ import dataclasses
 from typing import List
 
 from ...circuit.layouter import AssignedCell, Layouter, Region
-from ...circuit.value import Value
+from ...circuit.value import Assigned, Value
 from ...plonk.circuit import Column, ConstraintSystem, Selector
 from ...poly.polynomial import Rotation
-from .primitives import ConstantLength, PoseidonSpec
+from .primitives import ConstantLength, PoseidonSpec, full_round, mds_mul, partial_round, pow5
 
 
 @dataclasses.dataclass
@@ -67,7 +67,7 @@ class Pow5Chip:
             v2 = v * v
             return v2 * v2 * v
 
-        def full_round(cells):
+        def full_round_gate(cells):
             s = cells.query_selector(s_full)
             constraints = []
             cur = [cells.query_advice(state[i], Rotation.cur()) for i in range(width)]
@@ -81,7 +81,7 @@ class Pow5Chip:
                 constraints.append(("state", s * (expr - nxt[next_idx])))
             return constraints
 
-        meta.create_gate("full round", full_round)
+        meta.create_gate("full round", full_round_gate)
 
         def partial_rounds(cells):
             s = cells.query_selector(s_partial)
@@ -247,77 +247,50 @@ def _load(region: Region, config: Pow5Config, initial_state):
 
 
 def _value_list(state, p):
-    from ...circuit.value import Assigned
+    """The state's words as canonical ints, or None if any is unknown."""
+    vals = []
+    for w in state:
+        v = w.value.value()
+        if v is None:
+            return None
+        vals.append(v.evaluate(p) if v.__class__ is Assigned else v % p)
+    return vals
 
-    vals = [w.value for w in state]
-    if any(v.is_none() for v in vals):
-        return None
-    return [
-        v.value().evaluate(p) if isinstance(v.value(), Assigned) else v.value() % p
-        for v in vals
-    ]
 
-
-def _round(region: Region, config: Pow5Config, state, round_idx, offset, selector, next_state):
+def _round(region: Region, config: Pow5Config, round_idx, offset, selector, next_state):
     selector.enable(region, offset)
-    for i in range(config.spec.t):
-        region.assign_fixed(
-            config.rc_a[i], offset, lambda c=config.round_constants[round_idx][i]: c
-        )
-    out = []
-    for i in range(config.spec.t):
-        value = Value.unknown() if next_state is None else Value.known(next_state[i])
-        out.append(region.assign_advice(config.state[i], offset + 1, lambda v=value: v))
-    return out
+    for column, c in zip(config.rc_a, config.round_constants[round_idx]):
+        region.assign_fixed(column, offset, c)
+    if next_state is None:
+        next_state = [None] * config.spec.t
+    return [region.assign_advice(column, offset + 1, Value(v))
+            for column, v in zip(config.state, next_state)]
 
 
 def _full_round(region, config, state, round_idx, offset):
-    spec = config.spec
-    p = spec.field.p
+    p = config.spec.field.p
     vals = _value_list(state, p)
     nxt = None
     if vals is not None:
-        r = [spec.sbox((v + rc) % p) for v, rc in zip(vals, config.round_constants[round_idx])]
-        nxt = [
-            sum(config.m_reg[i][j] * r[j] for j in range(spec.t)) % p
-            for i in range(spec.t)
-        ]
-    return _round(region, config, state, round_idx, offset, config.s_full, nxt)
+        nxt = full_round(p, config.m_reg, vals, config.round_constants[round_idx])
+    return _round(region, config, round_idx, offset, config.s_full, nxt)
 
 
 def _partial_round(region, config, state, round_idx, offset):
-    spec = config.spec
-    p = spec.field.p
-    t = spec.t
+    """Two partial rounds in one row; the first round's S-box output is the
+    ``partial_sbox`` cell."""
+    p = config.spec.field.p
     vals = _value_list(state, p)
-
-    r = mid_val = nxt = None
+    mid = nxt = None
     if vals is not None:
         rcs = config.round_constants[round_idx]
-        r = [spec.sbox((vals[0] + rcs[0]) % p)] + [
-            (vals[i] + rcs[i]) % p for i in range(1, t)
-        ]
-        mid_val = r[0]
-    region.assign_advice(
-        config.partial_sbox,
-        offset,
-        lambda: Value.known(mid_val) if mid_val is not None else Value.unknown(),
-    )
-
-    for i in range(t):
-        region.assign_fixed(
-            config.rc_b[i], offset, lambda c=config.round_constants[round_idx + 1][i]: c
-        )
-
-    if vals is not None:
-        p_mid = [sum(config.m_reg[i][j] * r[j] for j in range(t)) % p for i in range(t)]
-        rcs_b = config.round_constants[round_idx + 1]
-        r_mid = [spec.sbox((p_mid[0] + rcs_b[0]) % p)] + [
-            (p_mid[i] + rcs_b[i]) % p for i in range(1, t)
-        ]
-        nxt = [sum(config.m_reg[i][j] * r_mid[j] for j in range(t)) % p for i in range(t)]
-
-    return _round(region, config, state, round_idx, offset, config.s_partial, nxt)
+        mid = pow5((vals[0] + rcs[0]) % p, p)
+        p_mid = mds_mul(config.m_reg, [mid] + [v + c for v, c in zip(vals[1:], rcs[1:])], p)
+        nxt = partial_round(p, config.m_reg, p_mid, config.round_constants[round_idx + 1])
+    region.assign_advice(config.partial_sbox, offset, Value(mid))
+    for column, c in zip(config.rc_b, config.round_constants[round_idx + 1]):
+        region.assign_fixed(column, offset, c)
+    return _round(region, config, round_idx, offset, config.s_partial, nxt)
 
 
 # ---------------------------------------------------------------------------

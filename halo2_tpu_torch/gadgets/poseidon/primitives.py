@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import operator
 from typing import List, Tuple
 
 from ...fields.spec import FieldSpec
@@ -146,7 +147,7 @@ class PoseidonSpec:
     secure_mds: int = 0
 
     def sbox(self, v: int) -> int:
-        return pow(v, 5, self.field.p)
+        return pow5(v, self.field.p)
 
     @functools.cached_property
     def _constants(self) -> Tuple[List[List[int]], list, list]:
@@ -169,25 +170,42 @@ def p128_pow5_t3(field: FieldSpec) -> PoseidonSpec:
     return PoseidonSpec(field, 3, 2, 8, 56, 0)
 
 
+def pow5(x: int, p: int) -> int:
+    """The S-box x^5 mod p, by three products (``pow(x, 5, p)`` is slower)."""
+    x2 = x * x % p
+    return x2 * x2 % p * x % p
+
+
+def mds_mul(mds, state: List[int], p: int) -> List[int]:
+    """``mds`` times ``state``, mod p; unrolled at width 3 (P128Pow5T3)."""
+    if len(state) == 3:
+        (a0, a1, a2), (b0, b1, b2), (c0, c1, c2) = mds
+        s0, s1, s2 = state
+        return [(a0 * s0 + a1 * s1 + a2 * s2) % p,
+                (b0 * s0 + b1 * s1 + b2 * s2) % p,
+                (c0 * s0 + c1 * s1 + c2 * s2) % p]
+    return [sum(map(operator.mul, row, state)) % p for row in mds]
+
+
+def full_round(p: int, mds, state: List[int], rcs: List[int]) -> List[int]:
+    """One full round: the constants, the S-box on every word, the MDS."""
+    return mds_mul(mds, [pow5((w + c) % p, p) for w, c in zip(state, rcs)], p)
+
+
+def partial_round(p: int, mds, state: List[int], rcs: List[int]) -> List[int]:
+    """One partial round: the constants, the S-box on word 0, the MDS."""
+    words = [w + c for w, c in zip(state, rcs)]
+    words[0] = pow5(words[0] % p, p)
+    return mds_mul(mds, words, p)
+
+
 def permute(spec: PoseidonSpec, state: List[int]) -> List[int]:
     """The Poseidon permutation (primitives.rs permute())."""
     p = spec.field.p
     round_constants, mds, _ = spec.constants()
-    t = spec.t
-    r_f = spec.full_rounds // 2
-    r_p = spec.partial_rounds
-
-    def apply_mds(st):
-        return [sum(mds[i][j] * st[j] for j in range(t)) % p for i in range(t)]
-
-    rounds = (["full"] * r_f) + (["partial"] * r_p) + (["full"] * r_f)
-    for kind, rcs in zip(rounds, round_constants):
-        if kind == "full":
-            state = [spec.sbox((w + rc) % p) for w, rc in zip(state, rcs)]
-        else:
-            state = [(w + rc) % p for w, rc in zip(state, rcs)]
-            state[0] = spec.sbox(state[0])
-        state = apply_mds(state)
+    partial = range(spec.full_rounds // 2, spec.full_rounds // 2 + spec.partial_rounds)
+    for r, rcs in enumerate(round_constants):
+        state = (partial_round if r in partial else full_round)(p, mds, state, rcs)
     return state
 
 

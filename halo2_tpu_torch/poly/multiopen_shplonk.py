@@ -13,6 +13,13 @@ Device work: the y/v linear combinations (K1), the kate divisions and the
 two commitment MSMs (K2/K3).  Host work: interpolation over <= 4 points,
 vanishing evaluations, transcript.
 
+Two spans (``utils/profiling.phase``), nested in the prover's "multiopen":
+``H_PHASE`` from after y's squeeze through h's transcript write (the sets,
+the batched evaluations and their pull, the interpolation, v, the sets'
+combination, the divisions and h's commitment) and ``L_PHASE`` from after
+u's squeeze through the second write (the linearization, its division and
+commitment).
+
 Commitment identity follows the reference's pointer equality
 (poly/query.rs ``PartialEq`` = ``ptr::eq``): Python object identity of the
 poly or commitment object, so the prover must hand over the very ``Poly``
@@ -29,6 +36,7 @@ from ..curves.point import to_affine_ints
 from ..fields import limb
 from ..fields.spec import NLIMBS
 from ..ops import arith
+from ..utils import profiling
 from .multiopen_gwc import DualMSM, HostMSM
 from .polynomial import COEFF, Poly
 
@@ -69,6 +77,10 @@ def construct_intermediate_sets(queries, get_commitment, get_point):
     )
 
 
+H_PHASE = "multiopen: shplonk h(X)"
+L_PHASE = "multiopen: shplonk l(X)"
+
+
 def _eval_vanishing(points, z: int, p: int) -> int:
     acc = 1
     for pt in points:
@@ -88,86 +100,89 @@ def shplonk_create_proof(params, rng, transcript, queries):
 
     y = transcript.squeeze_challenge()
 
-    rotation_sets, super_point_set = construct_intermediate_sets(
-        queries, lambda q: q.poly, lambda q: q.point
-    )
-
     def scalar(value: int):
         return limb.from_int(spec, value, dev).reshape(NLIMBS, 1)
 
-    # every (poly, point) evaluation the sets need, in one batched pass
-    pairs = [(poly, pt) for points, comms in rotation_sets for poly in comms for pt in points]
-    evals = limb.to_ints(spec, arith.eval_polynomials_batched(
-        spec,
-        torch.stack([poly.values for poly, _ in pairs], dim=1),
-        limb.from_ints(spec, [pt for _, pt in pairs], dev),
-    ))
-    eval_of = {(id(poly), pt): v for (poly, pt), v in zip(pairs, evals)}
+    with profiling.phase(H_PHASE):
+        rotation_sets, super_point_set = construct_intermediate_sets(
+            queries, lambda q: q.poly, lambda q: q.point
+        )
 
-    # low-degree equivalents r_j(X) per commitment (host, <= set-size coeffs)
-    extended_sets = []
-    for points, comms in rotation_sets:
-        exts = []
-        for poly in comms:
-            evs = [eval_of[(id(poly), pt)] for pt in points]
-            exts.append((poly, arith.lagrange_interpolate(spec, points, evs)))
-        extended_sets.append((points, exts))
+        # every (poly, point) evaluation the sets need, in one batched pass
+        pairs = [(poly, pt) for points, comms in rotation_sets for poly in comms for pt in points]
+        evals = limb.to_ints(spec, arith.eval_polynomials_batched(
+            spec,
+            torch.stack([poly.values for poly, _ in pairs], dim=1),
+            limb.from_ints(spec, [pt for _, pt in pairs], dev),
+        ))
+        eval_of = {(id(poly), pt): v for (poly, pt), v in zip(pairs, evals)}
 
-    v = transcript.squeeze_challenge()
+        # low-degree equivalents r_j(X) per commitment (host, <= set-size coeffs)
+        extended_sets = []
+        for points, comms in rotation_sets:
+            exts = []
+            for poly in comms:
+                evs = [eval_of[(id(poly), pt)] for pt in points]
+                exts.append((poly, arith.lagrange_interpolate(spec, points, evs)))
+            extended_sets.append((points, exts))
 
-    # h(X) = sum_i v^i * [sum_j y^j (P_ij - R_ij)] / Z_i(X)
-    h_x = None
-    power_v = 1
-    for points, exts in extended_sets:
-        n_x = None
-        power_y = 1
-        for poly, r_coeffs in exts:
-            vals = poly.values
-            # subtract the low-degree equivalent from the leading coefficients
-            head = limb.fsub(spec, vals[:, : len(r_coeffs)], limb.from_ints(spec, r_coeffs, dev))
-            num = torch.cat([head, vals[:, len(r_coeffs) :]], dim=1)
-            term = limb.fmul(spec, num, scalar(power_y))
-            n_x = term if n_x is None else limb.fadd(spec, n_x, term)
-            power_y = power_y * y % p
-        q_i = n_x
-        for pt in points:
-            q_i = arith.kate_division(spec, q_i, pt)
-        term = limb.fmul(spec, q_i, scalar(power_v))
-        h_x = term if h_x is None else limb.fadd(spec, h_x, term)
-        power_v = power_v * v % p
+        v = transcript.squeeze_challenge()
 
-    transcript.write_point(to_affine_ints(params.curve, params.commit(Poly(h_x, COEFF)))[0])
+        # h(X) = sum_i v^i * [sum_j y^j (P_ij - R_ij)] / Z_i(X)
+        h_x = None
+        power_v = 1
+        for points, exts in extended_sets:
+            n_x = None
+            power_y = 1
+            for poly, r_coeffs in exts:
+                vals = poly.values
+                # subtract the low-degree equivalent from the leading coefficients
+                head = limb.fsub(spec, vals[:, : len(r_coeffs)], limb.from_ints(spec, r_coeffs, dev))
+                num = torch.cat([head, vals[:, len(r_coeffs) :]], dim=1)
+                term = limb.fmul(spec, num, scalar(power_y))
+                n_x = term if n_x is None else limb.fadd(spec, n_x, term)
+                power_y = power_y * y % p
+            q_i = n_x
+            for pt in points:
+                q_i = arith.kate_division(spec, q_i, pt)
+            term = limb.fmul(spec, q_i, scalar(power_v))
+            h_x = term if h_x is None else limb.fadd(spec, h_x, term)
+            power_v = power_v * v % p
+
+        transcript.write_point(to_affine_ints(params.curve, params.commit(Poly(h_x, COEFF)))[0])
+
     u = transcript.squeeze_challenge()
 
-    # linearization l(X) = sum_i v^i z_i [sum_j y^j (P_ij - r_ij(u))] - Z_T(u) h(X)
-    l_x = None
-    power_v = 1
-    z_diffs = []
-    for points, exts in extended_sets:
-        z_i = _eval_vanishing([pt for pt in super_point_set if pt not in points], u, p)
-        z_diffs.append(z_i)
-        inner = None
-        power_y = 1
-        for poly, r_coeffs in exts:
-            r_eval = 0
-            for c in reversed(r_coeffs):
-                r_eval = (r_eval * u + c) % p
-            # P(X) - r_eval: subtract from the constant coefficient
-            const = limb.fsub(spec, poly.values[:, :1], scalar(r_eval))
-            contrib = torch.cat([const, poly.values[:, 1:]], dim=1)
-            term = limb.fmul(spec, contrib, scalar(power_y))
-            inner = term if inner is None else limb.fadd(spec, inner, term)
-            power_y = power_y * y % p
-        term = limb.fmul(spec, inner, scalar(z_i * power_v % p))
-        l_x = term if l_x is None else limb.fadd(spec, l_x, term)
-        power_v = power_v * v % p
+    with profiling.phase(L_PHASE):
+        # linearization l(X) = sum_i v^i z_i [sum_j y^j (P_ij - r_ij(u))] - Z_T(u) h(X)
+        l_x = None
+        power_v = 1
+        z_diffs = []
+        for points, exts in extended_sets:
+            z_i = _eval_vanishing([pt for pt in super_point_set if pt not in points], u, p)
+            z_diffs.append(z_i)
+            inner = None
+            power_y = 1
+            for poly, r_coeffs in exts:
+                r_eval = 0
+                for c in reversed(r_coeffs):
+                    r_eval = (r_eval * u + c) % p
+                # P(X) - r_eval: subtract from the constant coefficient
+                const = limb.fsub(spec, poly.values[:, :1], scalar(r_eval))
+                contrib = torch.cat([const, poly.values[:, 1:]], dim=1)
+                term = limb.fmul(spec, contrib, scalar(power_y))
+                inner = term if inner is None else limb.fadd(spec, inner, term)
+                power_y = power_y * y % p
+            term = limb.fmul(spec, inner, scalar(z_i * power_v % p))
+            l_x = term if l_x is None else limb.fadd(spec, l_x, term)
+            power_v = power_v * v % p
 
-    zt_eval = _eval_vanishing(super_point_set, u, p)
-    l_x = limb.fsub(spec, l_x, limb.fmul(spec, h_x, scalar(zt_eval)))
+        zt_eval = _eval_vanishing(super_point_set, u, p)
+        l_x = limb.fsub(spec, l_x, limb.fmul(spec, h_x, scalar(zt_eval)))
 
-    h2 = arith.kate_division(spec, l_x, u)
-    h2 = limb.fmul(spec, h2, scalar(pow(z_diffs[0], -1, p)))
-    transcript.write_point(to_affine_ints(params.curve, params.commit(Poly(h2, COEFF)))[0])
+        h2 = arith.kate_division(spec, l_x, u)
+        h2 = limb.fmul(spec, h2, scalar(pow(z_diffs[0], -1, p)))
+        transcript.write_point(to_affine_ints(params.curve, params.commit(Poly(h2, COEFF)))[0])
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,14 @@ from halo2_tpu_torch.circuit import Value
 from halo2_tpu_torch.curves.spec import BN254_G1
 from halo2_tpu_torch.dev import MockProver
 from halo2_tpu_torch.fields.spec import BN254_FR, PASTA_FP
-from halo2_tpu_torch.gadgets.poseidon import ConstantLength, hash_message, p128_pow5_t3, permute
+from halo2_tpu_torch.gadgets.poseidon import (
+    ConstantLength,
+    PoseidonSpec,
+    hash_message,
+    p128_pow5_t3,
+    permute,
+)
+from halo2_tpu_torch.gadgets.poseidon.primitives import full_round, mds_mul, partial_round, pow5
 
 torch.set_num_threads(1)  # tiny limb tensors: one thread is faster, and xdist runs several workers
 
@@ -77,6 +84,47 @@ def test_permute_and_hash_equal_jax(field):
                 == jax_hash_message(theirs, ConstantLength(2), msg))
     # the sponge's domain: hash([6, 42]) = permute([6, 42, 2 << 64])[0]
     assert hash_message(ours, ConstantLength(2), [6, 42]) == permute(ours, [6, 42, 2 << 64])[0]
+
+
+def _textbook_permute(spec, state):
+    """The permutation as primitives.rs writes it: pow(x, 5, p) and the full
+    matrix product, every word reduced after each step."""
+    p = spec.field.p
+    rcs, mds, _ = spec.constants()
+    half = spec.full_rounds // 2
+    for r, rc in enumerate(rcs):
+        state = [(w + c) % p for w, c in zip(state, rc)]
+        if half <= r < half + spec.partial_rounds:
+            state[0] = pow(state[0], 5, p)
+        else:
+            state = [pow(w, 5, p) for w in state]
+        state = [sum(m * w for m, w in zip(row, state)) % p for row in mds]
+    return state
+
+
+@pytest.mark.parametrize("width", [3, 4])
+def test_rounds_equal_textbook(width):
+    """``pow5`` and ``sbox``, ``mds_mul`` (unrolled at width 3, a plain sum at others),
+    ``full_round``, ``partial_round`` and ``permute`` equal the textbook
+    arithmetic on seeded states, unreduced and negative words included."""
+    spec = PoseidonSpec(BN254_FR, width, width - 1, 8, 56, 0)
+    p = BN254_FR.p
+    rcs, mds, _ = spec.constants()
+    rs = np.random.default_rng(width)
+    for case in range(6):
+        state = [int.from_bytes(rs.bytes(32), "little") % p for _ in range(width)]
+        if case == 1:
+            state = [w + p for w in state]
+        if case == 2:
+            state = [-w for w in state]
+        assert pow5(state[0], p) == spec.sbox(state[0]) == pow(state[0], 5, p)
+        assert mds_mul(mds, state, p) == [sum(m * w for m, w in zip(row, state)) % p for row in mds]
+        assert full_round(p, mds, state, rcs[0]) == mds_mul(
+            mds, [pow((w + c) % p, 5, p) for w, c in zip(state, rcs[0])], p)
+        words = [(w + c) % p for w, c in zip(state, rcs[4])]
+        assert partial_round(p, mds, state, rcs[4]) == mds_mul(
+            mds, [pow(words[0], 5, p)] + words[1:], p)
+        assert permute(spec, state) == _textbook_permute(spec, [w % p for w in state])
 
 
 @pytest.mark.parametrize("case", ["bn254", "bn254_bad_instance", "pasta", "pasta_bad_instance"])

@@ -17,11 +17,12 @@ The proof bytes are the same every way.  The pinned proof of the
 tests/plonk_api.rs circuit (a lookup and an instance column, two circuits in
 one proof) shows the instance block's span once and the lookup's host
 matching once per lookup and circuit, under the profiler and the timers,
-with the pinned bytes.  On the CPU the plain MSM and power
-chains are hundreds of thousands of tiny torch ops, which the profiler would
-record and export for minutes, so the profiled proofs pause its CPU
-collection inside them (``toggle_collection_dynamic``); every span opens
-outside them.
+with the pinned bytes; its pinned SHPLONK proof shows the multiopen's two
+SHPLONK spans once each, inside "multiopen", with its pinned bytes.  On the
+CPU the plain MSM and power chains are hundreds of thousands of tiny torch
+ops, which the profiler would record and export for minutes, so the profiled
+proofs pause its CPU collection inside them (``toggle_collection_dynamic``);
+every span opens outside them.
 """
 
 import gzip
@@ -40,6 +41,7 @@ from halo2_tpu_torch.fields import limb
 from halo2_tpu_torch.fields.spec import BN254_FR
 from halo2_tpu_torch.plonk import create_proof, keygen_pk, keygen_vk
 from halo2_tpu_torch.poly import kzg
+from halo2_tpu_torch.poly import multiopen_shplonk as shplonk
 from halo2_tpu_torch.poly.kzg import ParamsKZG
 from halo2_tpu_torch.poly.multiopen_gwc import gwc_create_proof
 from halo2_tpu_torch.transcript import Blake2bTranscript
@@ -255,28 +257,33 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 @pytest.fixture(scope="module")
-def lookup_proofs(tmp_path_factory):
-    """The tests/plonk_api.rs circuit at k=5 over GWC, as
-    ``tests/data/plonk_api_gwc_k5.hex`` pins it: two circuits of one lookup
-    and one instance column each in one proof, proved under an operator's
-    ``torch.profiler`` and with the timers."""
-    from halo2_tpu_torch.utils.rng import FieldRng
-
+def plonk_api():
+    """The tests/plonk_api.rs circuit at k=5: (params, pk, circuit, instance,
+    lookups per proof), as ``tests/data/plonk_api_{gwc,shplonk}_k5.hex`` pin
+    it: two circuits of one lookup and one instance column each in one
+    proof."""
     k = 5
     a, instance, table = plonk_api_common(SPEC)
     params = ParamsKZG.setup_host(k, seed=b"plonk-api", device="cpu")
     blank = StandardPlonkCircuit(Value.unknown(), table)
     vk = keygen_vk(params, blank)
     pk = keygen_pk(params, vk, blank)
-    circuit = StandardPlonkCircuit(Value.known(a), table)
+    return params, pk, StandardPlonkCircuit(Value.known(a), table), instance, 2 * len(vk.cs.lookups)
+
+
+def traced_pinned_proofs(plonk_api, tmp_path_factory, multiopen, rng_seed, pin):
+    """The pinned proof made under an operator's ``torch.profiler`` and with
+    the timers: the proofs, the trace's span events and the timers' report."""
+    from halo2_tpu_torch.utils.rng import FieldRng
+
+    params, pk, circuit, instance, lookups = plonk_api
 
     def prove_pinned():
         return create_proof(params, pk, [circuit, circuit], [[[instance]], [[instance]]],
-                            FieldRng(SPEC, b"gwc-rng"), Blake2bTranscript(BN254_G1),
-                            gwc_create_proof)
+                            FieldRng(SPEC, rng_seed), Blake2bTranscript(BN254_G1), multiopen)
 
-    out = {"lookups": 2 * len(vk.cs.lookups)}
-    path = str(tmp_path_factory.mktemp("lookup") / "trace.json")
+    out = {"lookups": lookups}
+    path = str(tmp_path_factory.mktemp(pin) / "trace.json")
     with pytest.MonkeyPatch.context() as mp:
         mp.delenv("HALO2_TPU_PROFILE", raising=False)
         with torch.profiler.profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -285,15 +292,22 @@ def lookup_proofs(tmp_path_factory):
             out["profiled"] = prove_pinned()
         prof.export_chrome_trace(path)
     with open(path) as f:
-        out["names"] = annotations(json.load(f)["traceEvents"])
+        out["spans"] = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "user_annotation"]
+    out["names"] = annotations(out["spans"])
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("HALO2_TPU_PROFILE", "1")
         profiling.report(reset=True)
         out["timed"] = prove_pinned()
         out["report"] = {name: (calls, secs) for name, calls, secs in profiling.report(reset=True)}
-    with open(os.path.join(HERE, "data", "plonk_api_gwc_k5.hex")) as f:
+    with open(os.path.join(HERE, "data", f"{pin}.hex")) as f:
         out["pin"] = bytes.fromhex(f.read().strip())
     return out
+
+
+@pytest.fixture(scope="module")
+def lookup_proofs(plonk_api, tmp_path_factory):
+    return traced_pinned_proofs(plonk_api, tmp_path_factory, gwc_create_proof, b"gwc-rng",
+                                "plonk_api_gwc_k5")
 
 
 def test_profiler_sees_the_instance_span_and_one_matching_per_lookup(lookup_proofs):
@@ -316,3 +330,43 @@ def test_timers_report_the_instance_span_and_the_matching(lookup_proofs):
 @pytest.mark.parametrize("way", ["profiled", "timed"])
 def test_lookup_proof_bytes_equal_the_pin(lookup_proofs, way):
     assert lookup_proofs[way] == lookup_proofs["pin"]
+
+
+# -- the SHPLONK multiopen's spans, over the pinned SHPLONK proof --------------
+
+SHPLONK_SPANS = (shplonk.H_PHASE, shplonk.L_PHASE)
+
+
+@pytest.fixture(scope="module")
+def shplonk_proofs(plonk_api, tmp_path_factory):
+    return traced_pinned_proofs(plonk_api, tmp_path_factory, shplonk.shplonk_create_proof,
+                                b"shplonk-rng", "plonk_api_shplonk_k5")
+
+
+def test_profiler_sees_the_shplonk_spans_once_inside_the_multiopen(shplonk_proofs):
+    spans = shplonk_proofs["spans"]
+    outer = [e for e in spans if e["name"] == "multiopen"]
+    assert len(outer) == 1
+    start, end = outer[0]["ts"], outer[0]["ts"] + outer[0]["dur"]
+    for name in SHPLONK_SPANS:
+        inner = [e for e in spans if e["name"] == name]
+        assert len(inner) == 1, name
+        assert start <= inner[0]["ts"] and inner[0]["ts"] + inner[0]["dur"] <= end, name
+    h, lin = (next(e for e in spans if e["name"] == name) for name in SHPLONK_SPANS)
+    assert h["ts"] + h["dur"] <= lin["ts"]
+
+
+def test_timers_report_the_shplonk_spans_once_inside_the_multiopen(shplonk_proofs):
+    report = shplonk_proofs["report"]
+    assert all(report[name][0] == 1 and report[name][1] > 0 for name in SHPLONK_SPANS)
+    assert report["multiopen"][0] == 1
+    assert sum(report[name][1] for name in SHPLONK_SPANS) <= report["multiopen"][1]
+
+
+def test_gwc_opens_no_shplonk_span(lookup_proofs):
+    assert not set(SHPLONK_SPANS) & (set(lookup_proofs["names"]) | set(lookup_proofs["report"]))
+
+
+@pytest.mark.parametrize("way", ["profiled", "timed"])
+def test_shplonk_proof_bytes_equal_the_pin(shplonk_proofs, way):
+    assert shplonk_proofs[way] == shplonk_proofs["pin"]
